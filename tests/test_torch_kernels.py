@@ -1,0 +1,261 @@
+"""The port's modules and its kernels' plain versions against the JAX package.
+
+Every input is made with numpy from a seed (or computed by the JAX package
+from such inputs) and handed to both packages as numpy arrays; f64, small
+sizes (K=6, B=3). On the CPU the three kernel wrappers run their plain
+PyTorch versions, which are what the CUDA kernels are held to on the card
+(``chip_smoke.py`` and ``tests/test_torch_cuda.py``).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from successiveconvexification_tpu.config import IPMConfig as JIPMConfig
+from successiveconvexification_tpu.config import ScvxConfig as JScvxConfig
+from successiveconvexification_tpu.models import rocket6dof as jrk
+from successiveconvexification_tpu.ops import cones as jC
+from successiveconvexification_tpu.ops import equilibrate as jeq
+from successiveconvexification_tpu.ops import ipm as jipm
+from successiveconvexification_tpu.ops import smallla as jla
+from successiveconvexification_tpu.ops import socp as jsocp
+from successiveconvexification_tpu.ops.discretize import discretize as jdiscretize
+
+from successiveconvexification_tpu_torch.config import IPMConfig, ScvxConfig
+from successiveconvexification_tpu_torch.models import rocket6dof as trk
+from successiveconvexification_tpu_torch.ops import cones as tC
+from successiveconvexification_tpu_torch.ops import cuda_fused, cuda_kkt
+from successiveconvexification_tpu_torch.ops import equilibrate as teq
+from successiveconvexification_tpu_torch.ops import ipm as tipm
+from successiveconvexification_tpu_torch.ops import smallla as tla
+from successiveconvexification_tpu_torch.ops import socp as tsocp
+from successiveconvexification_tpu_torch.ops.discretize import discretize as tdiscretize
+
+K, B, SUBSTEPS = 6, 3, 2
+F64 = torch.float64
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a), dtype=F64)
+
+
+def _tree_np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _close(a, b, rtol, atol=None, msg=""):
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    np.testing.assert_allclose(a, np.asarray(b), rtol=rtol,
+                               atol=rtol * 1e-2 if atol is None else atol,
+                               err_msg=msg)
+
+
+def _params_np(seed, batch):
+    base = jrk.default_params(jnp.float64)
+    rng = np.random.default_rng(seed)
+    d = {f.name: np.broadcast_to(np.asarray(getattr(base, f.name)),
+                                 (batch,) + np.shape(getattr(base, f.name))).copy()
+         for f in dataclasses.fields(base)}
+    d["r_init"] = d["r_init"] + 0.2 * rng.standard_normal((batch, 3))
+    d["v_init"] = d["v_init"] + 0.1 * rng.standard_normal((batch, 3))
+    d["m_wet"] = d["m_wet"] * (1.0 + 0.03 * rng.standard_normal(batch))
+    return d
+
+
+def _jparams(d):
+    return jrk.Rocket6DoFParams(**{k: jnp.asarray(v) for k, v in d.items()})
+
+
+def _tparams(d):
+    return trk.params_from_numpy(d, device="cpu", dtype=F64)
+
+
+def _trajectories(seed):
+    """Perturbed straight-line trajectories (numpy) for a dispersed batch."""
+    d = _params_np(seed, B)
+    X, U, sig = jax.vmap(lambda p: jrk.initial_guess(p, K))(_jparams(d))
+    rng = np.random.default_rng(seed + 100)
+    X = np.asarray(X) + 0.05 * rng.standard_normal((B, K, jrk.NX))
+    q = X[..., 7:11]
+    X[..., 7:11] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    U = np.asarray(U) + 0.1 * rng.standard_normal((B, K, jrk.NU))
+    sig = np.asarray(sig) * (1.0 + 0.1 * rng.standard_normal(B))
+    return d, X, U, sig
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # tiny tensors: one thread is the fastest here
+    yield
+    torch.set_num_threads(threads)
+
+
+# ------------------------------------------------------------------ modules
+def test_dynamics_and_jacobians():
+    d = _params_np(0, 8)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((8, jrk.NX))
+    x[:, 0] = 1.5 + 0.2 * rng.random(8)
+    x[:, 7:11] /= np.linalg.norm(x[:, 7:11], axis=-1, keepdims=True)
+    u = rng.standard_normal((8, jrk.NU))
+    mj = jrk.rocket6dof_model()
+    mt = trk.rocket6dof_model()
+    fj = jax.vmap(mj.f)(_jparams(d), jnp.asarray(x), jnp.asarray(u))
+    Aj, Bj = jax.vmap(mj.jacobians)(_jparams(d), jnp.asarray(x), jnp.asarray(u))
+    ft, At, Bt = mt.f_and_jacobians(_tparams(d), _t(x), _t(u))
+    _close(ft, fj, 1e-12, 1e-12, "f")
+    _close(At, Aj, 1e-12, 1e-12, "A")
+    _close(Bt, Bj, 1e-12, 1e-12, "B")
+    _close(trk.state_basis(None, _t(x)),
+           jax.vmap(lambda xx: jrk.state_basis(None, xx))(jnp.asarray(x)),
+           1e-12, 1e-12, "state_basis")
+    _close(trk.project_jac(_t(x)), jax.vmap(jrk.project_jac)(jnp.asarray(x)),
+           1e-12, 1e-12, "project_jac")
+
+
+@pytest.fixture(scope="module")
+def problems():
+    """Discretization, StageSOCP and its Ruiz equilibration on both sides."""
+    d, X, U, sig = _trajectories(2)
+    tr = np.array([1.0, 0.3, 0.05])
+    pscale = np.array([1.0, 10.0, 1.0])
+    mj = jrk.rocket6dof_model()
+    mt = trk.rocket6dof_model()
+    cfg = JScvxConfig()
+
+    def jone(p, x, u, s, r, ps):
+        disc = jdiscretize(mj, p, x, u, s, substeps=SUBSTEPS)
+        dd = jsocp.assemble(mj, cfg, p, disc, x, u, s, r, free_final_time=True,
+                            penalty_scale=ps)
+        return disc, dd, jeq.equilibrate(dd, iters=3)
+
+    disc_j, d_j, eq_j = jax.jit(jax.vmap(jone))(
+        _jparams(d), jnp.asarray(X), jnp.asarray(U), jnp.asarray(sig),
+        jnp.asarray(tr), jnp.asarray(pscale))
+    pt = _tparams(d)
+    disc_t = tdiscretize(mt, pt, _t(X), _t(U), _t(sig), substeps=SUBSTEPS)
+    d_t = tsocp.assemble(mt, ScvxConfig(), pt, disc_t, _t(X), _t(U), _t(sig),
+                         _t(tr), free_final_time=True, penalty_scale=_t(pscale))
+    eq_t = teq.equilibrate(d_t, iters=3)
+    return (disc_j, d_j, eq_j), (disc_t, d_t, eq_t)
+
+
+def _compare_trees(tj, tt, rtol, name):
+    lj = jax.tree.leaves(_tree_np(tj))
+    lt = jax.tree.leaves(tt, is_leaf=lambda a: isinstance(a, torch.Tensor))
+    assert len(lj) == len(lt), name
+    for i, (a, b) in enumerate(zip(lt, lj)):
+        scale = max(1.0, float(np.max(np.abs(b)))) if b.size else 1.0
+        _close(a, b, rtol, rtol * scale, f"{name}[{i}]")
+
+
+def test_discretization_fields(problems):
+    (disc_j, _, _), (disc_t, _, _) = problems
+    for f in disc_t._fields:
+        ref = np.asarray(getattr(disc_j, f))
+        _close(getattr(disc_t, f), ref, 1e-10, 1e-10 * np.abs(ref).max(), f)
+
+
+def test_stage_socp_fields(problems):
+    (_, d_j, _), (_, d_t, _) = problems
+    _compare_trees(d_j, d_t, 1e-10, "StageSOCP")
+
+
+def test_equilibrated_problem_and_scales(problems):
+    (_, _, eq_j), (_, _, eq_t) = problems
+    _compare_trees(eq_j[0], eq_t[0], 1e-10, "equilibrated")
+    _compare_trees(eq_j[1], eq_t[1], 1e-10, "scales")
+
+
+# --------------------------------------------------- kernels' plain versions
+def _interior_np(h, rng):
+    """Random strictly interior cone points shaped like cone_h (numpy)."""
+    out = {}
+    for k, v in h.items():
+        v = np.asarray(v)
+        if k in ("lin", "pq", "sig"):
+            out[k] = np.maximum(1.0 + 0.3 * rng.random(v.shape), 0.3)
+        else:
+            e = np.zeros(v.shape)
+            e[..., 0] = 1.0
+            p = e * (1.0 + 0.3 * rng.random(v.shape))
+            p[..., 1:] = 0.3 * rng.standard_normal(v.shape[:-1] + (v.shape[-1] - 1,))
+            need = np.linalg.norm(p[..., 1:], axis=-1) + 0.3
+            p[..., 0] = np.maximum(p[..., 0], need)
+            out[k] = p
+    return out
+
+
+def test_fused_factor_plain_matches_jax_factorize(problems):
+    """cuda_fused.fused_factor (plain on the CPU) via the port's factorize
+    against the JAX package's unfused factorize, on assembled rocket
+    subproblems with a genuine (non-identity) NT scaling."""
+    (_, d_j, _), (_, d_t, _) = problems
+    rng = np.random.default_rng(5)
+    h_np = _tree_np(jax.vmap(jsocp.cone_h)(d_j))
+    s_np, z_np = _interior_np(h_np, rng), _interior_np(h_np, rng)
+    spec = jipm._spec_of(jax.tree.map(lambda a: a[0], d_j))
+    W_j = jax.vmap(lambda s, z: jC.nt_scaling(spec, s, z))(
+        jax.tree.map(jnp.asarray, s_np), jax.tree.map(jnp.asarray, z_np))
+    W_t = tC.nt_scaling(spec, {k: _t(v) for k, v in s_np.items()},
+                        {k: _t(v) for k, v in z_np.items()})
+    _compare_trees(W_j, W_t, 1e-12, "W")
+    f_j = jax.jit(jax.vmap(
+        lambda dd, ww: jipm.factorize(dd, ww, JIPMConfig(use_pallas=False))))(
+            d_j, W_j)
+    f_t = tipm.factorize(d_t, W_t, IPMConfig())
+    _close(f_t.chol_Hw, f_j.chol_Hw, 1e-9, 1e-11, "chol_Hw")
+    _close(f_t.tri[0], f_j.tri[0], 1e-9, 1e-11, "L")
+    _close(f_t.tri[1], f_j.tri[1], 1e-9, 1e-11, "C")
+    _close(f_t.sm_t, f_j.sm_t, 1e-9, 1e-11, "sm_t")
+
+
+def _spd_blocks(rng, shape, n):
+    A = rng.standard_normal(shape + (n, n))
+    return A @ np.swapaxes(A, -1, -2) + n * np.eye(n)
+
+
+def test_tridiag_solve_plain_matches_jax():
+    rng = np.random.default_rng(8)
+    N, n = 7, 5
+    D = _spd_blocks(rng, (B, N), n)
+    O = 0.3 * rng.standard_normal((B, N - 1, n, n))
+    r = rng.standard_normal((B, N, n))
+    Lj, Cj = jax.vmap(jla.blocktridiag_factor)(jnp.asarray(D), jnp.asarray(O))
+    uj = jax.vmap(jla.blocktridiag_solve)(Lj, Cj, jnp.asarray(r))
+    Lt, Ct = tla.blocktridiag_factor(_t(D), _t(O))
+    _close(Lt, Lj, 1e-10, 1e-12, "L")
+    _close(Ct, Cj, 1e-10, 1e-12, "C")
+    ut = cuda_kkt.tridiag_solve(_t(Lj), _t(Cj), _t(r))
+    _close(ut, uj, 1e-10, 1e-12, "u")
+
+
+def test_cho_solve_vec_plain_matches_jax():
+    rng = np.random.default_rng(9)
+    H = _spd_blocks(rng, (B * K,), 17)
+    b = rng.standard_normal((B * K, 17))
+    L = np.linalg.cholesky(H)
+    xj = jla.cho_solve(jnp.asarray(L), jnp.asarray(b))
+    xt = cuda_kkt.cho_solve_vec(_t(L), _t(b))
+    _close(xt, xj, 1e-10, 1e-12, "x")
+
+
+def test_wrappers_launch_or_raise():
+    """Off the CPU a wrapper launches its kernel or raises; it never falls
+    back to the plain version (a 'meta' tensor is neither CPU nor CUDA)."""
+    L = torch.eye(3, dtype=F64).expand(2, 3, 3).to("meta")
+    b = torch.zeros(2, 3, dtype=F64).to("meta")
+    with pytest.raises(ValueError):
+        cuda_kkt.cho_solve_vec(L, b)
+    with pytest.raises(ValueError):
+        cuda_kkt.tridiag_solve(L[None], L[None], b[None])
+    G = torch.zeros(1, 3, 4, 5, dtype=F64, device="meta")
+    with pytest.raises(ValueError):
+        cuda_fused.fused_factor(G, G[..., 0], G[..., 0], G[..., :1, 0],
+                                G[:, :, 0], G[:, :2], G[:, :2], G[:, :2, :, 0],
+                                torch.zeros(1, 2, dtype=torch.int32))
