@@ -14,30 +14,46 @@ from beside this file and never imports JAX or the JAX package). Phases:
      a torch.Generator seeded with 0. Every kernel launch counter is set to
      0 just before and read just after; every kernel must have launched,
      and the counts must match the IPM's structure;
+  2b. the replan path (``bench.py``'s BENCH_MODE=replan, the same settings
+     with the PCR KKT backend): a cold single-lane solve of the nominal
+     scenario, r_init moved by (0.2, -0.2, 0.1), ``scvx_warm_start`` with
+     the STM correction, then general-branch SCvx iterations with a device
+     sync after each until the lane re-converges, at most bench.py's 40.
+     Counters as in phase 2: chol, cho_solve and cho_solve_vec must match
+     the IPM's structure, and the fused route's kernels must not launch;
+     the cold solve must converge. Then one warm replan iteration under
+     torch.profiler (device busy share, device operations, aten calls), and
+     the same path at static_reg 1e-6 (``REPLAN_CHECK_REG`` says why) with
+     bench.py's cap of 40: both of its solves must converge;
   3. each kernel against its plain PyTorch version on inputs captured from
-     that run (its first call inside the first IPM iteration, and every
-     call of the 10th lockstep SCvx iteration, whose warm IPM ends near
-     optimality where conditioning is worst), in float32 and float64: the
-     kernel must be finite wherever success in its dtype is guaranteed, and
-     there its residuals within their backward-error bounds and its error
-     against the float64 plain version within the forward error those
-     bounds permit (``check_call``); the wrappers must refuse what the
-     kernels do not take;
-  4. an f64 run of B=4 at K=50 on the card beside the same run on the CPU
-     with the plain versions (a child process): sigma within 1e-6 relative,
-     identical iteration counts and converged flags;
-  5. each kernel's time at the main-path shapes beside its bound, its plain
-     version's time and, where one exists, one PyTorch library call's time.
+     those runs (main path: its first call inside the first IPM iteration,
+     and every call of the 10th lockstep SCvx iteration, whose warm IPM ends
+     near optimality where conditioning is worst; replan path: the first IPM
+     iteration of the cold solve and every call of the last replan
+     iteration), in float32 and float64: the kernel must be finite wherever
+     success in its dtype is guaranteed, and there its residuals within
+     their backward-error bounds and its error against the float64 plain
+     version within the forward error those bounds permit (``check_call``);
+     the wrappers must refuse what the kernels do not take;
+  4. f64 on the card beside the same runs on the CPU with the plain
+     versions (child processes, Ruiz on every solve): B=4 of the main path
+     at K=50, and the replan path at K=50 with the static KKT
+     regularization at 1e-6 (``REPLAN_CHECK_REG`` says why); sigma within
+     1e-6 relative, identical iteration counts and converged flags;
+  5. each kernel's time at its path's shapes beside its bound, its plain
+     version's time and, where one exists, one PyTorch library call's time
+     (chol and cho_solve also at a B=256 batch of blocks, for the record).
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict ``{"ok": true, "device": {...}}``. Any failed phase exits
-non-zero without that line. ``--cpu-reference PATH`` is the child mode of
-phase 4 (CPU only).
+non-zero without that line. ``--cpu-reference PATH`` and ``--cpu-replan
+PATH`` are the child modes of phase 4 (CPU only).
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -53,6 +69,21 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 MAIN_B, MAIN_K, MAIN_SUBSTEPS = 256, 50, 8
 REF_B = 4
+REPLAN_DR = (0.2, -0.2, 0.1)    # bench.py's replan move of r_init
+BENCH_REPLAN_ITERS = 40         # bench.py's replan loop
+# Static KKT regularization of the replan runs that must converge. At the
+# default 1e-8 the PCR solve's residual plateaus late in the IPM (PCR's
+# combined solution does not solve one nearby system), so most subproblems
+# end uncertified and the summation order decides the path. In f32 on the
+# H100 the replan re-converged within 40 iterations for 3 of 4 moves of
+# r_init with the kernels, 3 of 4 with chol and cho_solve swapped for their
+# plain versions, 2 of 4 with every kernel of the path swapped, and 3 of 4
+# on the CPU; every column stuck on some move, not on the same ones, and
+# bench.py's move sticks with the kernels (defect+violation 1.92e-4, above
+# the f32 feasibility floor of 1.67e-4). At 1e-6 both solves
+# converge, and in f64 PCR gives the scan route's trajectory (ROADMAP
+# Queue 3; scripts/replan_diagnostic.py takes these readings).
+REPLAN_CHECK_REG = 1e-6
 
 KERNELS = {
     "fused_factor": dict(
@@ -64,10 +95,27 @@ KERNELS = {
     "cho_solve_vec": dict(
         source="successiveconvexification_tpu_torch/csrc/kkt.cu",
         replaces="successiveconvexification_tpu/ops/pallas_kkt.py:201"),
+    "chol": dict(
+        source="successiveconvexification_tpu_torch/csrc/kkt.cu",
+        replaces="successiveconvexification_tpu/ops/pallas_kkt.py:160"),
+    "cho_solve": dict(
+        source="successiveconvexification_tpu_torch/csrc/kkt.cu",
+        replaces="successiveconvexification_tpu/ops/pallas_kkt.py:201"),
 }
-# launches per warm IPM iteration and per cold init (ipm.py structure)
-PER_ITER = {"fused_factor": 1, "tridiag_solve": 4, "cho_solve_vec": 6}
-PER_COLD = {"fused_factor": 1, "tridiag_solve": 3, "cho_solve_vec": 4}
+# launches per IPM iteration and per cold init (ipm.py structure). An IPM
+# iteration factors once and runs three KKT solves (predictor, corrector,
+# one refinement), each with two stage-Hessian solves; a cold init factors
+# once and runs two KKT solves. The fused route adds a tridiag_solve per
+# KKT solve and one for the Sherman-Morrison vector; the PCR route factors
+# H with chol and forms H^-1 E', H^-1 F' with two cho_solve launches.
+PER_ITER = {"fused_factor": 1, "tridiag_solve": 4, "cho_solve_vec": 6,
+            "chol": 0, "cho_solve": 0}
+PER_COLD = {"fused_factor": 1, "tridiag_solve": 3, "cho_solve_vec": 4,
+            "chol": 0, "cho_solve": 0}
+REPLAN_PER_ITER = {"fused_factor": 0, "tridiag_solve": 0, "cho_solve_vec": 6,
+                   "chol": 1, "cho_solve": 2}
+REPLAN_PER_COLD = {"fused_factor": 0, "tridiag_solve": 0, "cho_solve_vec": 4,
+                   "chol": 1, "cho_solve": 2}
 LATE_LOCKSTEP = 10
 
 
@@ -83,18 +131,19 @@ def _import_port():
     return P, _build, cuda_fused, cuda_kkt
 
 
-def _configs(P, dtype: str, K: int, substeps: int, bench: bool):
-    import dataclasses
-
+def _configs(P, dtype: str, K: int, substeps: int, bench: bool,
+             kkt: str = "scan", static_reg: float = 1e-8):
     if bench:
         ipm = P.IPMConfig(max_iters=15, refine_steps=1, warm_start=True,
-                          use_pallas=True, kkt_solver="scan")
+                          use_pallas=True, kkt_solver=kkt,
+                          static_reg=static_reg)
     else:
         # the f64 card-vs-CPU check: Ruiz on every solve and the default IPM
         # cap keep each subproblem solved to tolerance, so the two runs stay
         # on one path (capped, unequilibrated warm solves make the f64 IPM
         # path sensitive to summation order)
-        ipm = P.IPMConfig(equilibrate_cold_only=False)
+        ipm = P.IPMConfig(equilibrate_cold_only=False, kkt_solver=kkt,
+                          static_reg=static_reg)
     return P.SolverConfig(
         dtype=dtype, disc=P.DiscretizationConfig(K=K, substeps=substeps),
         ipm=ipm, scvx=dataclasses.replace(P.ScvxConfig(), max_iters=120))
@@ -108,6 +157,140 @@ def _dispersed(P, B: int, dtype, device):
     gen = torch.Generator(device="cpu").manual_seed(0)
     return P.sample_dispersions(params, gen, B, r_std=0.2, v_std=0.1,
                                 m_frac_std=0.03)
+
+
+def replan(P, model, cfg, device: str, cap: int, before=None, after=None,
+           dr=REPLAN_DR, cold=None):
+    """The replan path: a cold single-lane solve of the nominal scenario
+    (or the given ``cold`` solution), r_init moved by ``dr``,
+    ``scvx_warm_start`` with the STM correction, then general-branch SCvx
+    iterations until the lane converges (at most ``cap``), with a device
+    sync after each (bench.py's replan mode). ``before``/``after`` are
+    called around each replan iteration. ``marks`` has one letter per
+    replan iteration: C where its IPM certified convergence, s where not."""
+    import torch
+    from successiveconvexification_tpu_torch.models import rocket6dof as rk
+
+    dtype = getattr(torch, cfg.dtype)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    params = rk.default_params(dtype=dtype, device=device)
+    sync()
+    t0 = time.perf_counter()
+    if cold is None:
+        cold = P.scvx_solve(model, params, cfg, device=device)
+    sync()
+    cold_s = time.perf_counter() - t0
+    p2 = params.replace(r_init=params.r_init + torch.tensor(
+        dr, dtype=dtype, device=device)).map(lambda v, tail: v[None])
+    t0 = time.perf_counter()
+    warm0 = P.scvx_warm_start(model, p2, cfg, cold.X[0], cold.U[0],
+                              cold.sigma[0])
+    sync()
+    warm_start_ms = 1e3 * (time.perf_counter() - t0)
+    warm, lat_ms, marks = warm0, [], ""
+    for _ in range(cap):
+        if before:
+            before()
+        t0 = time.perf_counter()
+        warm = P.scvx_iteration(model, p2, cfg, warm)
+        sync()
+        lat_ms.append(1e3 * (time.perf_counter() - t0))
+        if after:
+            after()
+        marks += "C" if bool(warm.ipm_carry.converged.all()) else "s"
+        if bool(warm.converged.all()):
+            break
+    return dict(cold=cold, warm=warm, warm0=warm0, params=p2, cold_s=cold_s,
+                warm_start_ms=warm_start_ms, lat_ms=lat_ms, marks=marks)
+
+
+def run_replan(P, batch_mod, model, cfg, wrappers, caps, cap: int, card: str):
+    """Drive the replan path on the card with every launch counter set to 0
+    just before and read just after; print its line and its launches, and
+    fail unless the trajectories are finite and the counts match the IPM's
+    structure (chol, cho_solve and cho_solve_vec launched, the fused route's
+    kernels not). ``caps`` keep the inputs of the first IPM iteration of the
+    cold solve and of every call of the last replan iteration."""
+    import torch
+
+    n_solve_cold = {"n": 0}
+    orig_iter = batch_mod.scvx_iteration
+
+    def counting_iteration(model_, params_, cfg_, st_, assume_warm_valid=False):
+        n_solve_cold["n"] += 0 if assume_warm_valid else 1
+        return orig_iter(model_, params_, cfg_, st_,
+                         assume_warm_valid=assume_warm_valid)
+
+    def before():
+        for c in caps.values():
+            c.recent.clear()
+
+    def after():
+        for c in caps.values():
+            c.late = list(c.recent)
+
+    batch_mod.scvx_iteration = counting_iteration
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        r = replan(P, model, cfg, "cuda", cap, before, after)
+        launches = {k: w.launches for k, w in wrappers.items()}
+    finally:
+        batch_mod.scvx_iteration = orig_iter
+    sm = r["summary"] = _replan_summary(r)
+    lat = sorted(r["lat_ms"])
+    print(f"replan path: K={MAIN_K} {cfg.dtype} PCR, static_reg "
+          f"{cfg.ipm.static_reg:g}: cold solve {r['cold_s']:.3f} s, "
+          f"{sm['cold_iterations']} iterations, converged "
+          f"{sm['cold_converged']}; warm start {r['warm_start_ms']:.1f} ms; "
+          f"replan {sum(lat):.1f} ms, {len(lat)} iterations (cap {cap}), ms "
+          f"per SCvx iteration p50 {lat[len(lat) // 2]:.1f} max {lat[-1]:.1f}, "
+          f"re-converged {sm['converged']}, final defect+violation "
+          f"{sm['defect'] + sm['viol']:.3e}, sigma {sm['cold_sigma']:.5f} -> "
+          f"{sm['sigma']:.5f}; {card}")
+    # every replan iteration is a general-branch one: it pays a cold init
+    n_cold = n_solve_cold["n"] + len(lat)
+    n_body = launches["chol"] - n_cold
+    expect = {k: REPLAN_PER_ITER[k] * n_body + REPLAN_PER_COLD[k] * n_cold
+              for k in launches}
+    print(f"  launches: {json.dumps(launches)}; expected from {n_body} IPM "
+          f"iterations + {n_cold} cold inits: {json.dumps(expect)}")
+    if not all(bool(torch.isfinite(t).all()) for st in (r["cold"], r["warm"])
+               for t in (st.X, st.U, st.sigma)):
+        raise PhaseError("replan path: non-finite trajectories")
+    if any(launches[k] == 0 for k in ("chol", "cho_solve", "cho_solve_vec")):
+        raise PhaseError(f"replan path: a kernel never launched: {launches}")
+    if launches != expect:
+        raise PhaseError("replan path: launch counts do not match the IPM "
+                         "(the fused route must not launch)")
+    return r, launches
+
+
+def _replan_summary(r) -> dict:
+    cold, warm = r["cold"], r["warm"]
+    return {"cold_iterations": int(cold.iterations[0]),
+            "cold_converged": bool(cold.converged[0]),
+            "cold_sigma": float(cold.sigma[0]),
+            "iterations": int(warm.iterations[0]),
+            "converged": bool(warm.converged[0]),
+            "sigma": float(warm.sigma[0]),
+            "defect": float(warm.defect_nl[0]),
+            "viol": float(warm.viol_nl[0])}
+
+
+def cpu_replan(path: str) -> None:
+    """Child mode: the f64 K=50 replan path on the CPU with the plain versions."""
+    import torch
+
+    torch.set_num_threads(2)
+    P, _, _, _ = _import_port()
+    cfg = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False, kkt="pcr",
+                   static_reg=REPLAN_CHECK_REG)
+    t0 = time.perf_counter()
+    r = replan(P, P.rocket6dof_model(), cfg, "cpu", cfg.scvx.max_iters)
+    out = {**_replan_summary(r), "seconds": time.perf_counter() - t0}
+    with open(path, "w") as f:
+        json.dump(out, f)
 
 
 def cpu_reference(path: str) -> None:
@@ -287,12 +470,18 @@ def _blocks(X, N, n):
     return d, low
 
 
+def _as_cols(L, b):
+    """A vector right-hand side (..., n) as one column (..., n, 1)."""
+    return b[..., None] if b.dim() == L.dim() - 1 else b
+
+
 def _cho_den(args, x):
-    """Residual of (L L') x = b and its absolute-term scale."""
+    """Residual of (L L') X = B (column by column) and its absolute-term
+    scale; vector or matrix right-hand sides, returned as columns."""
     L, b = (t.double() for t in args)
-    x = x.double()
-    return (_mv(L, _mv(_T(L), x)) - b,
-            _mv(L.abs(), _mv(_T(L).abs(), x.abs())) + b.abs())
+    b, x = _as_cols(L, b), _as_cols(L, x.double())
+    return (L @ (_T(L) @ x) - b,
+            L.abs() @ (_T(L).abs() @ x.abs()) + b.abs())
 
 
 def _backward_cho(args, outs):
@@ -307,9 +496,40 @@ def _forward_cho(args, ref, outs, dtype):
     L = args[0].double()
     n_t = 2 * L.shape[-1] + 1
     Ainv = torch.cholesky_inverse(L).abs()
-    tol = _mv(Ainv, _gamma(n_t, dtype) * _cho_den(args, outs[0])[1]
-              + _gamma(n_t, torch.float64) * _cho_den(args, ref[0])[1])
-    return _omega(outs[0].double() - ref[0].double(), tol)
+    tol = Ainv @ (_gamma(n_t, dtype) * _cho_den(args, outs[0])[1]
+                  + _gamma(n_t, torch.float64) * _cho_den(args, ref[0])[1])
+    err = _as_cols(L, outs[0].double()) - _as_cols(L, ref[0].double())
+    return _omega(err, tol)
+
+
+# chol: Higham Thm 10.3, the computed factor of an n x n SPD A satisfies
+# L L' = A + dA with |dA| <= gamma_{n+1} |L| |L'|. Only the lower triangle
+# of A is read (the IPM's H is symmetric only to rounding).
+def _backward_chol(args, outs):
+    import torch
+
+    A, L = args[0].double(), outs[0].double()
+    res = torch.tril(L @ _T(L) - A)
+    return {"factor": (_omega(res, L.abs() @ _T(L.abs())), A.shape[-1] + 1)}
+
+
+def _forward_chol(args, ref, outs, dtype):
+    Lr = ref[0].double()
+    tol = _chol_forward(Lr, _both(Lr.shape[-1] + 1, dtype)
+                        * (Lr.abs() @ _T(Lr.abs())))
+    return _omega(outs[0].double() - Lr, tol)
+
+
+def _guaranteed_chol(args, ref, dtype):
+    """(N,) blocks that stay positive definite, with room for the forward
+    bound, under every perturbation within the backward-error bound."""
+    from successiveconvexification_tpu_torch.ops import smallla
+
+    A, Lr = args[0].double(), ref[0].double()
+    shift = 2 * _gamma(A.shape[-1] + 1, dtype) * (
+        Lr.abs() @ _T(Lr.abs())).sum(-1).amax(-1)
+    return _lane_finite((smallla.chol(A - shift[..., None, None]
+                                      * _eye(A.shape[-1], A)),))
 
 
 def _tridiag_den(args, u):
@@ -471,12 +691,15 @@ def _guaranteed_solve(args, ref, dtype):
 
 
 BACKWARD = {"fused_factor": _backward_fused, "tridiag_solve": _backward_tridiag,
-            "cho_solve_vec": _backward_cho}
+            "cho_solve_vec": _backward_cho, "chol": _backward_chol,
+            "cho_solve": _backward_cho}
 FORWARD = {"fused_factor": _forward_fused, "tridiag_solve": _forward_tridiag,
-           "cho_solve_vec": _forward_cho}
+           "cho_solve_vec": _forward_cho, "chol": _forward_chol,
+           "cho_solve": _forward_cho}
 GUARANTEED = {"fused_factor": _guaranteed_fused,
               "tridiag_solve": _guaranteed_solve,
-              "cho_solve_vec": _guaranteed_solve}
+              "cho_solve_vec": _guaranteed_solve, "chol": _guaranteed_chol,
+              "cho_solve": _guaranteed_solve}
 
 
 def check_call(name, args, kernel, plain):
@@ -562,8 +785,9 @@ def _time_ms(fn, reps: int = 20) -> float:
 
 def _work(name: str, args, esize: int):
     """(bytes, flops) the function must move and compute on these inputs:
-    every input read once, every output written once. The solves read only
-    the lower triangle of each L block, so only it counts."""
+    every input read once, every output written once. ``chol`` reads only
+    the lower triangle of each A block and the solves only that of each L
+    block, so only it counts."""
     if name == "fused_factor":
         G, wrow, uv, ucoef, hdiag, E, F, dpq, rng = args
         B, K, R, nw = G.shape
@@ -584,10 +808,66 @@ def _work(name: str, args, esize: int):
         B, N, n, _ = L.shape
         low = B * N * n * (n + 1) // 2
         return (low + C.numel() + 2 * r.numel()) * esize, 6 * B * N * n * n
-    L, b = args
+    if name == "chol":      # reads A's lower triangle, writes all of L
+        (A,) = args
+        n = A.shape[-1]
+        N = A.numel() // (n * n)
+        return (N * n * (n + 1) // 2 + A.numel()) * esize, N * n ** 3 / 3
+    L, b = args       # cho_solve_vec, cho_solve: 2 n^2 flops a column
     n = L.shape[-1]
-    N = b.numel() // n
-    return (N * n * (n + 1) // 2 + 2 * b.numel()) * esize, 2 * N * n * n
+    N = L.numel() // (n * n)
+    return (N * n * (n + 1) // 2 + 2 * b.numel()) * esize, 2 * n * b.numel()
+
+
+def _time_kernel(name, args, kernel, plain, library):
+    """Device ms of the kernel, its plain version and the library call (or
+    None), and the bound for this call's work."""
+    ms = _time_ms(lambda: kernel(*args))
+    # few reps: the plain versions launch hundreds of small kernels a call,
+    # and the stream's queue must hold them all while held
+    plain_ms = _time_ms(lambda: plain(*args), reps=2)
+    lib_ms = None if library is None else _time_ms(lambda: library(*args))
+    nbytes, flops = _work(name, args, args[0].element_size())
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return ms, plain_ms, lib_ms, {
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms, "mbytes": nbytes / 1e6, "gflop": flops / 1e9}
+
+
+def _blockwise(args):
+    """A call's tensors with every leading axis folded into one block axis,
+    so the checks see each block as a lane."""
+    return tuple(a.reshape(-1, *a.shape[-2:]) for a in args)
+
+
+def profile_iteration(P, model, cfg, r) -> dict:
+    """One warm replan iteration (from the warm-started state) under
+    torch.profiler: the device operations (kernels, copies, sets), the
+    union of their intervals, and the aten operator calls (nested
+    included), counted as scripts/profile_torch_iteration.py counts."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from profile_torch_iteration import device_busy_ms
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        P.scvx_iteration(model, r["params"], cfg, r["warm0"])
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        raise PhaseError("profile: the trace holds no device events")
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    return {"wall_ms": wall, "device_ops": len(dev),
+            "busy_ms": device_busy_ms(dev)[0],
+            "aten_calls": sum(e.count for e in ops)}
 
 
 def _card_line() -> str:
@@ -623,8 +903,9 @@ def main() -> int:
     from successiveconvexification_tpu_torch.ops import precision
 
     precision.full_precision()
-    child = None
+    children = []
     ref_path = os.path.join(ROOT, "build", "chip_smoke_cpu_reference.json")
+    replan_path = os.path.join(ROOT, "build", "chip_smoke_cpu_replan.json")
     try:
         # ---- 1. card and build ------------------------------------------------
         card = _card_line()
@@ -721,28 +1002,76 @@ def main() -> int:
         if launches != expect:
             raise PhaseError("main path: launch counts do not match the IPM")
 
-        # the CPU half of phase 4 runs beside phases 3 and 5 (not beside the
-        # main path, whose host-bound wall it would inflate)
-        if os.path.exists(ref_path):
-            os.remove(ref_path)
-        child = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--cpu-reference",
-             ref_path], cwd=ROOT)
+        # ---- 2b. the replan path ---------------------------------------------
+        wrappers.update(chol=cuda_kkt.chol, cho_solve=cuda_kkt.cho_solve)
+        rcaps = {"chol": Capture(cuda_kkt, "chol", REPLAN_PER_COLD["chol"]),
+                 "cho_solve": Capture(cuda_kkt, "cho_solve",
+                                      REPLAN_PER_COLD["cho_solve"])}
+        # bench.py's settings: the latency readings, the kernels' inputs
+        cfg_r = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True,
+                         kkt="pcr")
+        with rcaps["chol"], rcaps["cho_solve"]:
+            r, rlaunches = run_replan(P, batch_mod, model, cfg_r, wrappers,
+                                      rcaps, BENCH_REPLAN_ITERS, card)
+        if not r["summary"]["cold_converged"]:
+            raise PhaseError("replan path: the cold solve did not converge")
+        if not r["summary"]["converged"]:
+            print(f"  the replan did not re-converge within bench.py's "
+                  f"{BENCH_REPLAN_ITERS} iterations at the default static_reg "
+                  "(REPLAN_CHECK_REG, ROADMAP Queue 3: the PCR solves of the "
+                  "f32 IPM end uncertified, the summation order decides the "
+                  "path, and the plain versions stick too); the run at "
+                  f"{REPLAN_CHECK_REG:g} holds the re-convergence")
+        busy = profile_iteration(P, model, cfg_r, r)
+        print(f"one warm replan iteration under torch.profiler: wall "
+              f"{busy['wall_ms']:.1f} ms, {busy['device_ops']} device "
+              f"operations, device busy {busy['busy_ms']:.1f} ms "
+              f"({100 * busy['busy_ms'] / busy['wall_ms']:.1f}% of the wall), "
+              f"{busy['aten_calls']} aten operator calls (nested included)")
+        # the same path at static_reg 1e-6 and bench.py's cap: both solves
+        # must converge
+        cfg_r6 = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True,
+                          kkt="pcr", static_reg=REPLAN_CHECK_REG)
+        r6, _ = run_replan(P, batch_mod, model, cfg_r6, wrappers, {},
+                           BENCH_REPLAN_ITERS, card)
+        if not (r6["summary"]["cold_converged"] and r6["summary"]["converged"]):
+            raise PhaseError(f"replan path at static_reg {REPLAN_CHECK_REG:g}: "
+                             "a solve did not converge")
+
+        # the CPU halves of phase 4 run beside phases 3 and 5 (not beside the
+        # host-bound paths above, whose walls they would inflate)
+        for path in (ref_path, replan_path):
+            if os.path.exists(path):
+                os.remove(path)
+        children = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), mode, path], cwd=ROOT)
+            for mode, path in (("--cpu-reference", ref_path),
+                               ("--cpu-replan", replan_path))]
 
         # ---- 3. kernels against their plain versions ---------------------------
         plains = {"fused_factor": cuda_fused.fused_factor_plain,
                   "tridiag_solve": cuda_kkt.tridiag_solve_plain,
-                  "cho_solve_vec": cuda_kkt.cho_solve_vec_plain}
+                  "cho_solve_vec": cuda_kkt.cho_solve_vec_plain,
+                  "chol": cuda_kkt.chol_plain,
+                  "cho_solve": cuda_kkt.cho_solve_plain}
+        # chol and cho_solve run on one lane: hold them block by block
+        for c in rcaps.values():
+            c.first = _blockwise(c.first)
+            c.late = [_blockwise(a) for a in c.late]
         print("checks: readings are fractions of their bounds (<= 1), the "
               "largest over the calls and over the lanes where success in the "
               "dtype is guaranteed")
         max_abs, all_checks, failed = {}, {}, []
-        for name, cap in caps.items():
-            # every call of the late iteration for the factorization; every
-            # fourth for the solves (their dense forward bounds are costly)
-            late = cap.late if name == "fused_factor" else cap.late[::4]
-            for when, calls in (("first IPM iteration", [cap.first]),
-                                (f"SCvx iteration {LATE_LOCKSTEP}", late)):
+        phases = [(name, cap, "first IPM iteration",
+                   f"SCvx iteration {LATE_LOCKSTEP}") for name, cap in caps.items()]
+        phases += [(name, cap, "first IPM iteration of the cold replan solve",
+                    "last replan iteration") for name, cap in rcaps.items()]
+        for name, cap, first_when, late_when in phases:
+            # every call of the late iteration, but every fourth for the
+            # main path's solves (their dense forward bounds are costly)
+            late = cap.late[::4] if name in ("tridiag_solve", "cho_solve_vec") \
+                else cap.late
+            for when, calls in ((first_when, [cap.first]), (late_when, late)):
                 if not calls or calls[0] is None:
                     raise PhaseError(f"{name}: no captured call for {when}")
                 before = wrappers[name].launches
@@ -751,7 +1080,7 @@ def main() -> int:
                 if wrappers[name].launches != before + 2 * len(calls):
                     raise PhaseError(f"{name}: a kernel call did not count one launch")
                 all_checks[f"{name} / {when}"] = res
-                if when == "first IPM iteration":
+                if when == first_when:
                     max_abs[name] = res[0]["max_abs_err"]
                 top = lambda key: max(r[key] for r in res)  # noqa: E731
                 tot = lambda key: sum(r[key] for r in res)  # noqa: E731
@@ -790,6 +1119,15 @@ def main() -> int:
             ("CPU and CUDA tensors mixed", ValueError, lambda: cuda_kkt.tridiag_solve(
                 torch.eye(3, device=dev).expand(1, 2, 3, 3),
                 torch.zeros(1, 2, 3, 3), torch.zeros(1, 2, 3, device=dev))),
+            ("chol float16", TypeError, lambda: cuda_kkt.chol(
+                torch.eye(4, dtype=torch.float16, device=dev)[None])),
+            ("chol n = 33 > 32", ValueError, lambda: cuda_kkt.chol(
+                torch.eye(33, device=dev)[None])),
+            ("cho_solve m = 33 > 32", ValueError, lambda: cuda_kkt.cho_solve(
+                torch.eye(4, device=dev)[None], torch.zeros(1, 4, 33, device=dev))),
+            ("cho_solve CPU and CUDA tensors mixed", ValueError,
+             lambda: cuda_kkt.cho_solve(torch.eye(4, device=dev)[None],
+                                        torch.zeros(1, 4, 3))),
         )
         for what, exc, call in refusals:
             try:
@@ -799,35 +1137,34 @@ def main() -> int:
             raise PhaseError(f"a wrapper took what its kernel does not ({what})")
         print(f"wrappers refuse: {', '.join(w for w, _, _ in refusals)} -> ok")
 
-        # ---- 5. times at the main-path shapes ----------------------------------
+        # ---- 5. times at each path's shapes -----------------------------------
+        library = {
+            "cho_solve_vec": lambda L, b: torch.cholesky_solve(b[..., None], L),
+            "chol": lambda A: torch.linalg.cholesky_ex(A),
+            "cho_solve": lambda L, B: torch.cholesky_solve(B, L)}
         records = []
-        for name, cap in caps.items():
-            args = cap.first
-            kern = lambda: wrappers[name](*args)  # noqa: E731
-            plain = lambda: plains[name](*args)  # noqa: E731
-            ms = _time_ms(kern)
-            # few reps: the plain versions issue hundreds of small launches
-            # a call, and the stream's queue must hold them all while held
-            plain_ms = _time_ms(plain, reps=2)
-            lib_ms = None
-            if name == "cho_solve_vec":
-                L, b = args
-                lib_ms = _time_ms(lambda: torch.cholesky_solve(b[..., None], L))
-            nbytes, flops = _work(name, args, args[0].element_size())
-            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS["float32"] * 1e3
-            rec = {"name": name, "route": "cuda", **KERNELS[name],
-                   "launches": launches[name], "max_abs_err": max_abs[name],
-                   "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "library_ms": lib_ms}
-            records.append(rec)
-            print(f"time {name} at {[tuple(a.shape) for a in args]}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        timed = [(name, cap.first, launches[name], "main path")
+                 for name, cap in caps.items()]
+        timed += [(name, cap.first, rlaunches[name], "replan path")
+                  for name, cap in rcaps.items()]
+        # chol and cho_solve also at a B=256 batch of the replan blocks
+        timed += [(name, tuple(a.repeat(MAIN_B, *([1] * (a.dim() - 1)))
+                               for a in cap.first), None, "B=256 batch")
+                  for name, cap in rcaps.items()]
+        for name, args, n_launch, where in timed:
+            ms, plain_ms, lib_ms, rec = _time_kernel(
+                name, args, wrappers[name], plains[name], library.get(name))
+            if n_launch is not None:
+                records.append({"name": name, "route": "cuda", **KERNELS[name],
+                                "launches": n_launch,
+                                "max_abs_err": max_abs[name],
+                                **{k: v for k, v in rec.items()
+                                   if k not in ("mbytes", "gflop")}})
+            print(f"time {name} ({where}) at {[tuple(a.shape) for a in args]}: "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                   f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} "
-                  f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP); {card}")
+                  f"({rec['mbytes']:.3f} MB, {rec['gflop']:.5f} GFLOP); {card}")
 
         # ---- 4. f64 on the card against the CPU -------------------------------
         cfg64 = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False)
@@ -836,11 +1173,18 @@ def main() -> int:
         st64 = P.solve_batch(model, pb64, cfg64, device="cuda")
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
-        rc = child.wait(timeout=900)
-        child = None
-        if rc != 0 or not os.path.exists(ref_path):
-            raise PhaseError(f"f64 CPU reference run failed (rc={rc})")
+        cfg64r = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False,
+                          kkt="pcr", static_reg=REPLAN_CHECK_REG)
+        t0 = time.perf_counter()
+        card_r = _replan_summary(replan(P, model, cfg64r, "cuda",
+                                        cfg64r.scvx.max_iters))
+        card_r_s = time.perf_counter() - t0
+        rcs = [c.wait(timeout=900) for c in children]
+        children = []
+        if any(rcs) or not (os.path.exists(ref_path) and os.path.exists(replan_path)):
+            raise PhaseError(f"f64 CPU reference runs failed (rc={rcs})")
         cpu = json.load(open(ref_path))
+        cpu_r = json.load(open(replan_path))
         sig_card = st64.sigma.cpu().tolist()
         rel = max(abs(a - b) / abs(b) for a, b in zip(sig_card, cpu["sigma"]))
         same_its = st64.iterations.cpu().tolist() == cpu["iterations"]
@@ -852,6 +1196,21 @@ def main() -> int:
               f"{rel:.3e} (tol 1e-6)")
         if not (rel <= 1e-6 and same_its and same_conv):
             raise PhaseError("f64 card run disagrees with the CPU run")
+        rel_r = max(abs(card_r[k] - cpu_r[k]) / abs(cpu_r[k])
+                    for k in ("cold_sigma", "sigma"))
+        same_r = all(card_r[k] == cpu_r[k] for k in (
+            "cold_iterations", "cold_converged", "iterations", "converged"))
+        print(f"f64 replan K={MAIN_K} PCR, static_reg {REPLAN_CHECK_REG:g}: card "
+              f"{card_r_s:.1f} s, CPU "
+              f"{cpu_r['seconds']:.1f} s; cold iterations card "
+              f"{card_r['cold_iterations']} CPU {cpu_r['cold_iterations']}, "
+              f"replan iterations card {card_r['iterations']} CPU "
+              f"{cpu_r['iterations']}; converged card "
+              f"{card_r['cold_converged']}/{card_r['converged']} CPU "
+              f"{cpu_r['cold_converged']}/{cpu_r['converged']}; sigma max rel "
+              f"diff {rel_r:.3e} (tol 1e-6)")
+        if not (rel_r <= 1e-6 and same_r):
+            raise PhaseError("f64 card replan disagrees with the CPU replan")
 
         print(json.dumps({"kernels": records}))
         print(json.dumps({"ok": True, "device": {
@@ -862,13 +1221,17 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        if child is not None:
-            child.kill()
-            child.wait()
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+            c.wait()
 
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--cpu-reference":
         cpu_reference(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-replan":
+        cpu_replan(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

@@ -3,8 +3,8 @@
 A second package beside ``successiveconvexification_tpu`` (the JAX
 reference), with the same module names where a reader looks for a
 counterpart. It imports ``torch`` only. Plain tensor code is PyTorch; the
-three KKT kernels of the IPM are CUDA C++ for Hopper (``csrc/``), built with
-nvcc on first use and bound with ctypes. Every tensor carries an explicit
+KKT kernels of the IPM (five so far) are CUDA C++ for Hopper (``csrc/``),
+built with nvcc on first use and bound with ctypes. Every tensor carries an explicit
 scenario axis where the JAX package used ``vmap``.
 
 Entry points take ``device=None``, meaning the card; they raise when no card
@@ -27,6 +27,7 @@ from successiveconvexification_tpu_torch.ops.scvx import (
     scvx_init,
     scvx_iteration,
     scvx_solve,
+    scvx_warm_start,
 )
 from successiveconvexification_tpu_torch.parallel.batch import (
     batch_stats,
@@ -46,6 +47,7 @@ __all__ = [
     "scvx_init",
     "scvx_iteration",
     "scvx_solve",
+    "scvx_warm_start",
     "solve_batch",
     "solve_batch_compact_device",
     "batch_stats",

@@ -8,11 +8,13 @@ Physics parameters live in the model parameter structs (tensors with a batch
 axis); algorithm parameters here are plain Python values.
 
 Fields the port reads differently from the JAX package:
-  * ``IPMConfig.use_pallas`` is accepted but has no effect: the port always
-    factors through its fused KKT route, whose three CUDA kernels launch on
-    CUDA tensors and whose plain PyTorch versions serve CPU tensors.
-  * ``IPMConfig.kkt_solver`` must be ``"scan"`` and
-    ``IPMConfig.gondzio_correctors`` must be 0; other values raise.
+  * ``IPMConfig.use_pallas`` is accepted but has no effect: the KKT kernels
+    launch on CUDA tensors whatever it says, and their plain PyTorch
+    versions serve CPU tensors.
+  * ``IPMConfig.kkt_solver`` may be ``"scan"`` (the fused factorization; it
+    raises when the subproblem has rank-one quadratic rows) or ``"pcr"``
+    (the unfused factorization with parallel cyclic reduction);
+    ``"ksharded"`` raises. ``IPMConfig.gondzio_correctors`` must be 0.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
-// Block solves of the structured KKT system, written for Hopper (sm_90a).
+// Block factorizations and solves of the structured KKT system, written for
+// Hopper (sm_90a).
 //
-// Two kernels with a plain C interface (loaded with ctypes by
+// Four kernels with a plain C interface (loaded with ctypes by
 // ops/cuda_kkt.py). Every entry point launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError().
 //
@@ -31,6 +32,44 @@
 //   each solved entry with __shfl_sync. v stays in shared memory between
 //   the sweeps and is overwritten by u, so no intermediate goes through
 //   device memory.
+//
+// ---------------------------------------------------------------------------
+// chol: lower Cholesky factor of N independent n x n SPD blocks.
+//   Replaces pallas_kkt.py _chol_kernel (pallas_kkt.chol: the stage-Hessian
+//   factor of the unfused factorize, ipm.py:208; n = nw = 17, N = K = 50 on
+//   the single-lane replan path). Bound on the H100: bytes (the lower
+//   triangle in, n^2 values out, n^3/3 flops a block); at the
+//   replan shapes launch latency sets its time.
+//   Design: one warp per block, several warps per CTA, the ragged edge a
+//   bounds check (the TPU padded with identity blocks). The warp copies the
+//   block's lower triangle into shared memory with consecutive lanes on
+//   consecutive addresses and factors it column by column in place
+//   (left-looking):
+//   lane i forms s_i = A[i][j] - sum_k L[i][k] L[j][k] for its row, the
+//   pivot s_j comes from lane j by a shuffle, and lane i writes
+//   L[i][j] = s_i / sqrt(s_j); one __syncwarp per column. The block goes
+//   back with zeros above the diagonal, again coalesced. Breakdown follows
+//   ops/smallla.py chol: a block with any pivot <= 0 or non-finite comes
+//   out ENTIRELY NaN (the IPM masks lanes by finiteness, so a block that is
+//   finite in part would be wrong). Every non-finite entry of L feeds the
+//   pivot of its row, so the pivot test also catches non-finite inputs in
+//   the lower triangle; the upper triangle is never read (as cholesky_ex).
+//
+// ---------------------------------------------------------------------------
+// cho_solve: (L L') X = B for N independent blocks, B and X n x m (m <= 32).
+//   Replaces pallas_kkt.py _cho_solve_kernel as launched by cho_solve (the
+//   matrix right-hand sides H^-1 E', H^-1 F' of the unfused factorize,
+//   ipm.py:209-210; n = 17, m = 13, N = K-1 = 49 on the replan path).
+//   Bound on the H100: bytes (L's lower triangle and B read once, X written
+//   once, 2 n^2 m flops a block).
+//   Design: one warp per block; L is copied into shared memory once per
+//   block and lane c owns column c of the right-hand side, running its own
+//   forward and backward substitution with no shuffles (every lane reads the
+//   same L entry: a shared-memory broadcast). Row i of B and of X is m
+//   consecutive values, so the lanes' reads and writes are coalesced. B must
+//   be row-major (N, n, m): the wrapper materializes a transposed view
+//   (E' of the port's E) with .contiguous() rather than folding the
+//   transpose into the indexing, which would put the lanes n values apart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -130,6 +169,138 @@ __global__ void tridiag_solve_kernel(const T* __restrict__ L,
 }
 
 template <typename T>
+__device__ __forceinline__ T quiet_nan();
+template <>
+__device__ __forceinline__ float quiet_nan<float>() {
+  return __int_as_float(0x7fc00000);
+}
+template <>
+__device__ __forceinline__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+template <typename T>
+__global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int N,
+                            int n) {
+  extern __shared__ unsigned char smem_raw[];
+  const int warp = threadIdx.x / 32;
+  const int li = threadIdx.x % 32;
+  const int blk = blockIdx.x * (blockDim.x / 32) + warp;
+  if (blk >= N) return;  // the whole warp leaves together
+  const unsigned full = 0xffffffffu;
+  const int nn = n * n;
+  T* a = reinterpret_cast<T*>(smem_raw) + (size_t)warp * nn;
+  const T* Ab = A + (size_t)blk * nn;
+  for (int t = li; t < nn; t += 32) {
+    const int r = t / n, c = t - r * n;
+    if (c <= r) a[t] = Ab[t];  // only the lower triangle is read
+  }
+  __syncwarp();
+
+  bool bad = false;  // warp-uniform: every lane tests the same pivot
+  for (int j = 0; j < n; ++j) {
+    // lane i >= j: s_i = A[i][j] - sum_{k<j} L[i][k] L[j][k]; columns < j of
+    // the lower part of a already hold L
+    T s = T(0);
+    if (li >= j && li < n) {
+      s = a[li * n + j];
+      for (int k = 0; k < j; ++k) s -= a[li * n + k] * a[j * n + k];
+    }
+    const T piv = __shfl_sync(full, s, j);
+    bad = bad || !(piv > T(0)) || isinf(piv);
+    const T d = sqrt(piv);
+    // lane i only rewrites its own entry of column j, which no other lane
+    // reads in this step
+    if (li == j) {
+      a[j * n + j] = d;
+    } else if (li > j && li < n) {
+      a[li * n + j] = s / d;
+    }
+    __syncwarp();
+  }
+
+  T* Lb = L + (size_t)blk * nn;
+  const T nan = quiet_nan<T>();
+  for (int t = li; t < nn; t += 32) {
+    const int r = t / n, c = t - r * n;
+    Lb[t] = bad ? nan : (c <= r ? a[t] : T(0));
+  }
+}
+
+template <typename T>
+__global__ void cho_solve_kernel(const T* __restrict__ L,
+                                 const T* __restrict__ B, T* __restrict__ X,
+                                 int N, int n, int m) {
+  extern __shared__ unsigned char smem_raw[];
+  const int warp = threadIdx.x / 32;
+  const int li = threadIdx.x % 32;
+  const int blk = blockIdx.x * (blockDim.x / 32) + warp;
+  if (blk >= N) return;  // the whole warp leaves together
+  const int nn = n * n;
+  T* l = reinterpret_cast<T*>(smem_raw) + (size_t)warp * nn;
+  const T* Lb = L + (size_t)blk * nn;
+  for (int t = li; t < nn; t += 32) {
+    const int r = t / n, c = t - r * n;
+    if (c <= r) l[t] = Lb[t];  // only the lower triangle is read
+  }
+  __syncwarp();
+  if (li >= m) return;
+  const T* Bb = B + (size_t)blk * n * m;
+  T* Xb = X + (size_t)blk * n * m;
+  T y[kMaxN];
+  // forward: L y = b
+  for (int r = 0; r < n; ++r) {
+    T s = Bb[r * m + li];
+    for (int k = 0; k < r; ++k) s -= l[r * n + k] * y[k];
+    y[r] = s / l[r * n + r];
+  }
+  // backward: L' x = y
+  for (int r = n - 1; r >= 0; --r) {
+    T s = y[r];
+    for (int k = r + 1; k < n; ++k) s -= l[k * n + r] * y[k];
+    y[r] = s / l[r * n + r];
+  }
+  for (int r = 0; r < n; ++r) Xb[r * m + li] = y[r];
+}
+
+template <typename T>
+int warp_per_block_grid(int N, int n, int* blocks, int* warps,
+                          size_t* smem) {
+  // one warp per n x n block, its copy in shared memory; four warps a CTA
+  if (n < 1 || n > kMaxN || N < 0) return (int)cudaErrorInvalidValue;
+  *warps = 4;
+  *blocks = (N + *warps - 1) / *warps;
+  *smem = (size_t)(*warps) * n * n * sizeof(T);
+  return (int)cudaSuccess;
+}
+
+template <typename T>
+int launch_chol(const void* A, void* L, int N, int n, void* stream) {
+  int blocks, warps;
+  size_t smem;
+  const int err = warp_per_block_grid<T>(N, n, &blocks, &warps, &smem);
+  if (err != (int)cudaSuccess) return err;
+  if (N == 0) return (int)cudaSuccess;
+  chol_kernel<T><<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
+      (const T*)A, (T*)L, N, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cho_solve(const void* L, const void* B, void* X, int N, int n,
+                     int m, void* stream) {
+  if (m < 1 || m > 32) return (int)cudaErrorInvalidValue;
+  int blocks, warps;
+  size_t smem;
+  const int err = warp_per_block_grid<T>(N, n, &blocks, &warps, &smem);
+  if (err != (int)cudaSuccess) return err;
+  if (N == 0) return (int)cudaSuccess;
+  cho_solve_kernel<T><<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
+      (const T*)L, (const T*)B, (T*)X, N, n, m);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_cho_solve_vec(const void* L, const void* b, void* x, int N, int n,
                          void* stream) {
   if (n < 1 || n > kMaxN || N < 0) return (int)cudaErrorInvalidValue;
@@ -180,6 +351,24 @@ int scvx_tridiag_solve_f32(const void* L, const void* C, const void* r, void* u,
 int scvx_tridiag_solve_f64(const void* L, const void* C, const void* r, void* u,
                            int B, int N, int n, void* stream) {
   return launch_tridiag_solve<double>(L, C, r, u, B, N, n, stream);
+}
+
+int scvx_chol_f32(const void* A, void* L, int N, int n, void* stream) {
+  return launch_chol<float>(A, L, N, n, stream);
+}
+
+int scvx_chol_f64(const void* A, void* L, int N, int n, void* stream) {
+  return launch_chol<double>(A, L, N, n, stream);
+}
+
+int scvx_cho_solve_f32(const void* L, const void* B, void* X, int N, int n,
+                       int m, void* stream) {
+  return launch_cho_solve<float>(L, B, X, N, n, m, stream);
+}
+
+int scvx_cho_solve_f64(const void* L, const void* B, void* X, int N, int n,
+                       int m, void* stream) {
+  return launch_cho_solve<double>(L, B, X, N, n, m, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,20 @@
 """CUDA kernels for the block solves of the KKT system (csrc/kkt.cu).
 
-The counterpart of the JAX package's ``ops/pallas_kkt.py`` for the two
-kernels the main path runs:
+The counterpart of the JAX package's ``ops/pallas_kkt.py`` for the
+kernels the ported paths run:
 
   - ``cho_solve_vec``: (L L') x = b for N tiny blocks, vector rhs
     (replaces ``pallas_kkt.cho_solve_vec`` / ``_cho_solve_kernel``);
   - ``tridiag_solve``: forward and backward block-tridiagonal sweeps in ONE
-    launch (replaces ``pallas_kkt.tridiag_solve``, which took two).
+    launch (replaces ``pallas_kkt.tridiag_solve``, which took two);
+  - ``chol``: lower Cholesky of N tiny SPD blocks (replaces
+    ``pallas_kkt.chol`` / ``_chol_kernel``);
+  - ``cho_solve``: (L L') X = B for N tiny blocks, matrix rhs (replaces
+    ``pallas_kkt.cho_solve`` / ``_cho_solve_kernel``).
+
+The first two run on the main path (fused ``scan`` factorization), the
+last two on the single-lane replan path (unfused factorization, PCR);
+``cho_solve_vec`` runs on both.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and uses its
 plain PyTorch version on a CPU tensor, only because the tensor lies on the
@@ -78,3 +86,60 @@ def tridiag_solve(L: torch.Tensor, C: torch.Tensor,
 
 
 tridiag_solve.launches = 0
+
+
+def chol_plain(A: torch.Tensor) -> torch.Tensor:
+    return smallla.chol(A)
+
+
+def chol(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky of SPD blocks A (..., n, n), n <= 32; a block with a
+    pivot <= 0 or non-finite comes out entirely NaN."""
+    if A.device.type == "cpu":
+        return chol_plain(A)
+    sfx = _build.suffix("chol", A)
+    n = A.shape[-1]
+    if A.dim() < 2 or A.shape[-2] != n or not 1 <= n <= 32:
+        raise ValueError(f"chol: shape {tuple(A.shape)}")
+    Ac = A.contiguous()
+    L = torch.empty_like(Ac)
+    err = _fn("chol", sfx, 2, 2)(
+        Ac.data_ptr(), L.data_ptr(), Ac.numel() // (n * n), n,
+        torch.cuda.current_stream(A.device).cuda_stream)
+    _build.check(err, "chol")
+    chol.launches += 1
+    return L
+
+
+chol.launches = 0
+
+
+def cho_solve_plain(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return smallla.cho_solve(L, B)
+
+
+def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L_i L_i') X_i = B_i; L (..., n, n), B (..., n, m), n, m <= 32.
+
+    ``B`` may be a transposed view (E' of the IPM's E): it is made
+    contiguous here, so the kernel reads each row of B as m consecutive
+    values."""
+    if L.device.type == "cpu" and B.device.type == "cpu":
+        return cho_solve_plain(L, B)
+    sfx = _build.suffix("cho_solve", L, B)
+    n, m = L.shape[-1], B.shape[-1]
+    if (L.dim() < 2 or L.shape[-2] != n or B.shape[:-1] != L.shape[:-1]
+            or not 1 <= n <= 32 or not 1 <= m <= 32):
+        raise ValueError(f"cho_solve: shapes {tuple(L.shape)}, "
+                         f"{tuple(B.shape)}")
+    Lc, Bc = L.contiguous(), B.contiguous()
+    X = torch.empty_like(Bc)
+    err = _fn("cho_solve", sfx, 3, 3)(
+        Lc.data_ptr(), Bc.data_ptr(), X.data_ptr(), Lc.numel() // (n * n),
+        n, m, torch.cuda.current_stream(L.device).cuda_stream)
+    _build.check(err, "cho_solve")
+    cho_solve.launches += 1
+    return X
+
+
+cho_solve.launches = 0

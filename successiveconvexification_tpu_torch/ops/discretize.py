@@ -139,3 +139,49 @@ def propagate(model: Model, params, X: torch.Tensor, U: torch.Tensor,
     if model.project_jac is not None:
         x_end = model.project_state(x_end)
     return x_end
+
+
+def _hillis_steele(combine, elems, dims):
+    """Inclusive scan of an associative ``combine(earlier, later)`` over the
+    interval axis (``dims[i]`` of ``elems[i]``) in log2(N) rounds: at
+    stride d every entry i >= d takes combine(entry i-d, entry i). The JAX
+    package uses ``associative_scan`` here, outside any kernel."""
+    N = elems[0].shape[dims[0]]
+    d = 1
+    while d < N:
+        early = [e.narrow(dm, 0, N - d) for e, dm in zip(elems, dims)]
+        late = [e.narrow(dm, d, N - d) for e, dm in zip(elems, dims)]
+        elems = [torch.cat([e.narrow(dm, 0, d), c], dim=dm)
+                 for e, c, dm in zip(elems, combine(early, late), dims)]
+        d *= 2
+    return elems
+
+
+def _affine_compose(e1, e2):
+    """Compose batched affine maps: e1 = (A1, c1) applied FIRST, then e2:
+    (A2, c2) o (A1, c1) = (A2 A1, A2 c1 + c2)."""
+    A1, c1 = e1
+    A2, c2 = e2
+    return A2 @ A1, _mv(A2, c1) + c2
+
+
+def condense(disc: Discretization) -> torch.Tensor:
+    """Cumulative state-transition matrices, (..., K-1, nx, nx):
+    Phi[k] = A_k A_{k-1} ... A_0, the map from a node-0 perturbation to the
+    node-(k+1) perturbation under the discretized linear dynamics, composed
+    in log depth."""
+    (Phi,) = _hillis_steele(lambda a, b: [b[0] @ a[0]], [disc.A], [-3])
+    return Phi
+
+
+def linear_rollout(disc: Discretization, x0: torch.Tensor, U: torch.Tensor,
+                   sigma: torch.Tensor) -> torch.Tensor:
+    """Single-shooting rollout of the discrete affine dynamics, log depth.
+
+    Composes x_{k+1} = A_k x_k + Bm_k u_k + Bp_k u_{k+1} + S_k sigma + z_k
+    over the horizon as one scan of affine maps. x0 (..., nx), U (..., K, nu),
+    sigma (...). Returns (..., K-1, nx): the states at nodes 1..K-1."""
+    c = (_mv(disc.Bm, U[..., :-1, :]) + _mv(disc.Bp, U[..., 1:, :])
+         + disc.S * sigma[..., None, None] + disc.z)
+    Phi, ccum = _hillis_steele(_affine_compose, [disc.A, c], [-3, -2])
+    return _mv(Phi, x0[..., None, :]) + ccum

@@ -19,15 +19,25 @@ per-lane ``(B,)`` tensors, and the per-lane ``lax.while_loop`` is a Python
 loop whose finished lanes are frozen by ``torch.where`` (the select a
 batched ``while_loop`` applies), so results do not depend on the batch.
 
-Only the fused ``scan`` factorization is ported (``factorize``): the KKT
-factor runs as ``cuda_fused.fused_factor`` and the solves as
-``cuda_kkt.tridiag_solve`` / ``cuda_kkt.cho_solve_vec`` — CUDA kernels on
-the card, their plain PyTorch versions on the CPU.
+Two factorization routes are ported (``factorize``), each with CUDA
+kernels on the card and their plain PyTorch versions on the CPU:
+
+  * ``kkt_solver="scan"`` (the batched sweep): the whole KKT factor in one
+    ``cuda_fused.fused_factor``, the block-tridiagonal solves in
+    ``cuda_kkt.tridiag_solve``;
+  * ``kkt_solver="pcr"`` (single-lane replanning): H built here
+    (``build_H``), factored by ``cuda_kkt.chol``, H^-1 E', H^-1 F' by
+    ``cuda_kkt.cho_solve``, and the block-tridiagonal Schur system by
+    parallel cyclic reduction (``_pcr_factor`` / ``_pcr_solve``, plain
+    ``torch.linalg`` like the JAX package's XLA ``smallla`` there).
+
+Both solve the stage Hessian with ``cuda_kkt.cho_solve_vec``.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -36,16 +46,19 @@ from successiveconvexification_tpu_torch.config import IPMConfig
 from successiveconvexification_tpu_torch.ops import cones as C
 from successiveconvexification_tpu_torch.ops import cuda_fused, cuda_kkt
 from successiveconvexification_tpu_torch.ops import equilibrate as equilibrate_mod
-from successiveconvexification_tpu_torch.ops import socp
+from successiveconvexification_tpu_torch.ops import smallla, socp
 from successiveconvexification_tpu_torch.ops.cones import lane, lane_sum
 from successiveconvexification_tpu_torch.ops.socp import Primal, StageSOCP
 from successiveconvexification_tpu_torch.utils.tree import tree_leaves, tree_where
 
 ConeVec = Dict[str, torch.Tensor]
 
-_NOT_PORTED = ("not ported yet (ROADMAP.md Queue 1, replan path): the port "
-               "factors only through the fused 'scan' route without rank-one "
-               "quadratic rows")
+_NO_KSHARDED = ("the cross-device 'ksharded' KKT backend is not ported yet "
+                "(ROADMAP.md Queue 1 item 8, multi-device)")
+_NO_SCAN_R1 = ("the unfused 'scan' factorization (rank-one quadratic rows "
+               "Q_r1) needs the block-tridiagonal factor kernel, not ported "
+               "yet (ROADMAP.md Queue 2, kernel 5 tridiag_factor); use "
+               "kkt_solver='pcr'")
 
 
 class KKTFactors(NamedTuple):
@@ -53,7 +66,8 @@ class KKTFactors(NamedTuple):
     d_p: torch.Tensor        # (B, K-1, nrx)
     d_q: torch.Tensor        # (B, K-1, nrx)
     h_sig: torch.Tensor      # (B,)
-    tri: tuple               # (L, C), each (B, K-1, nrx, nrx)
+    tri: tuple               # "scan": (L, C), each (B, K-1, nrx, nrx);
+                             # "pcr": (levels, chol_final), _pcr_factor
     sm_t: torch.Tensor       # (B, K-1, nrx)  M0^-1 g
     sm_denom: torch.Tensor   # (B,)           h_sig + g' M0^-1 g
 
@@ -64,6 +78,27 @@ def _spec_of(d: StageSOCP) -> Dict[str, str]:
         spec[f"soc{i}"] = "soc"
     spec["tr"] = "soc"
     return spec
+
+
+def build_H(d: StageSOCP, W, reg: float):
+    """Stage Hessian blocks H = P + G'W^-2 G (B, K, nw, nw) and the p/q/sigma
+    diagonal pieces."""
+    wt = C.winv2_terms(_spec_of(d), W)
+    GT = d.G_lin.transpose(-1, -2)
+    H = GT @ (wt["lin"]["d"][..., None] * d.G_lin)
+    for i, G in enumerate(d.G_socs):
+        key = "tr" if i == len(d.G_socs) - 1 else f"soc{i}"
+        coef = wt[key]["coef"]                                   # (B, K)
+        u = (G.transpose(-1, -2) @ wt[key]["v"][..., None])      # G'v (B, K, nw, 1)
+        jd = -torch.ones(G.shape[-2], dtype=G.dtype, device=G.device)
+        jd[0] = 1.0                                              # J = diag(1, -I)
+        GJG = G.transpose(-1, -2) @ (jd[:, None] * G)
+        H = H + coef[..., None, None] * (2.0 * u @ u.transpose(-1, -2) - GJG)
+    H = H + torch.diag_embed((1.0 - d.free_w) + d.Q_w + reg)
+    if d.Q_r1.shape[2]:
+        H = H + d.Q_r1.transpose(-1, -2) @ d.Q_r1
+    d_p, d_q, h_sig = _pq_sig_terms(d, W, reg)
+    return H, d_p, d_q, h_sig
 
 
 def _pq_sig_terms(d: StageSOCP, W, reg: float):
@@ -115,10 +150,14 @@ def _ranges_tensor(ranges: tuple, device: torch.device) -> torch.Tensor:
 
 
 def factorize(d: StageSOCP, W, cfg: IPMConfig) -> KKTFactors:
-    if cfg.kkt_solver != "scan" or d.Q_r1.shape[2] != 0:
-        raise NotImplementedError(
-            f"factorize(kkt_solver={cfg.kkt_solver!r}, "
-            f"Q_r1 rows={d.Q_r1.shape[2]}) {_NOT_PORTED}")
+    if cfg.kkt_solver == "ksharded":
+        raise NotImplementedError(_NO_KSHARDED)
+    if cfg.kkt_solver == "pcr":
+        return _factorize_unfused(d, W, cfg)
+    if cfg.kkt_solver != "scan":
+        raise ValueError(f"unknown kkt_solver {cfg.kkt_solver!r}")
+    if d.Q_r1.shape[2]:
+        raise NotImplementedError(_NO_SCAN_R1)
     nx = d.c_p.shape[-1]
     reg = cfg.static_reg
 
@@ -130,17 +169,106 @@ def factorize(d: StageSOCP, W, cfg: IPMConfig) -> KKTFactors:
     chol_Hw, Ltri, Ctri = cuda_fused.fused_factor(
         G_cat, wrow, uv, ucoef, hdiag, d.E, d.F, diag_pq,
         _ranges_tensor(ranges, d.c_w.device))
-    tri = (Ltri, Ctri)
+    return _with_sherman_morrison(d, cfg, chol_Hw, d_p, d_q, h_sig,
+                                  (Ltri, Ctri))
+
+
+def _factorize_unfused(d: StageSOCP, W, cfg: IPMConfig) -> KKTFactors:
+    """H built and factored block by block, the Schur system M = A H^-1 A'
+    formed with matrix products and factored by PCR (``kkt_solver="pcr"``)."""
+    nx = d.c_p.shape[-1]
+    reg = cfg.static_reg
+    H, d_p, d_q, h_sig = build_H(d, W, reg)
+    chol_Hw = cuda_kkt.chol(H)
+    # Hw^-1 E', Hw^-1 F'  (E_k on w_k, F_k on w_{k+1})
+    XE = cuda_kkt.cho_solve(chol_Hw[:, :-1], d.E.transpose(-1, -2))
+    XF = cuda_kkt.cho_solve(chol_Hw[:, 1:], d.F.transpose(-1, -2))
+    # the virtual-control diagonal lives on the nx dynamics rows only;
+    # pinned (structurally zero) tangent rows get a unit diagonal
+    diag_pq = torch.cat([1.0 / d_p + 1.0 / d_q,
+                         torch.zeros_like(d.b[..., nx:])], dim=-1)
+    diag_pq = diag_pq + (1.0 - d.eq_row_free) + reg
+    D = d.E @ XE + d.F @ XF + torch.diag_embed(diag_pq)
+    O = d.F[:, :-1] @ XE[:, 1:]      # M[k, k+1] = F_k Hw_{k+1}^-1 E_{k+1}'
+    return _with_sherman_morrison(d, cfg, chol_Hw, d_p, d_q, h_sig,
+                                  _pcr_factor(D, O))
+
+
+def _with_sherman_morrison(d, cfg, chol_Hw, d_p, d_q, h_sig, tri) -> KKTFactors:
+    """The factors plus the rank-one sigma arrow's Sherman-Morrison data."""
     g = d.g_sig
-    t = _tri_solve(tri, g)
+    t = _tri_solve(cfg, tri, g)
     sm_denom = h_sig + lane_sum(g * t)
     return KKTFactors(chol_Hw=chol_Hw, d_p=d_p, d_q=d_q, h_sig=h_sig,
                       tri=tri, sm_t=t, sm_denom=sm_denom)
 
 
-def _tri_solve(tri, rhs):
+def _tri_solve(cfg: IPMConfig, tri, rhs):
+    if cfg.kkt_solver == "pcr":
+        return _pcr_solve(tri, rhs)
     L, Coff = tri
     return cuda_kkt.tridiag_solve(L, Coff, rhs)
+
+
+def _shift_up(a: torch.Tensor, k: int, fill: torch.Tensor | None = None):
+    """a[:, i + k] along axis 1, the last k entries ``fill`` (default 0)."""
+    N = a.shape[1]
+    pad = min(k, N)
+    tail = (torch.zeros_like(a[:, :pad]) if fill is None
+            else fill.expand(a[:, :pad].shape))
+    return torch.cat([a[:, k:], tail], dim=1)
+
+
+def _shift_down(a: torch.Tensor, k: int):
+    """a[:, i - k] along axis 1, the first k entries 0."""
+    N = a.shape[1]
+    if k >= N:
+        return torch.zeros_like(a)
+    return torch.cat([torch.zeros_like(a[:, :k]), a[:, :-k]], dim=1)
+
+
+def _pcr_factor(D: torch.Tensor, O: torch.Tensor):
+    """Parallel cyclic reduction of an SPD block-tridiagonal system along
+    axis 1: log2(N) levels of batched small-block algebra instead of an
+    N-step sequential sweep. D (B, N, n, n), O (B, N-1, n, n).
+
+    Returns the per-level (chol_D, C, stride) and the final decoupled
+    chol_D. With stride s = 2^l and C_i coupling i -> i+s:
+        D'_i = D_i - C_{i-s}' D_{i-s}^-1 C_{i-s} - C_i D_{i+s}^-1 C_i'
+        C'_i = -C_i D_{i+s}^-1 C_{i+s}          (couples i -> i+2s)
+    """
+    N, n = D.shape[1], D.shape[-1]
+    levels = max(1, math.ceil(math.log2(max(N, 2))))
+    C = torch.cat([O, torch.zeros_like(D[:, :1])], dim=1)   # C_i: i -> i+1
+    eye = torch.eye(n, dtype=D.dtype, device=D.device)
+    lev_data = []
+    s = 1
+    for _ in range(levels):
+        cholD = smallla.chol(D)
+        lev_data.append((cholD, C, s))
+        DinvC = smallla.cho_solve(cholD, C)                  # D_i^-1 C_i
+        # C_i = 0 wherever i+s is out of range (inductively), so the
+        # identity padding is only a nonsingular placeholder
+        tmp = smallla.cho_solve(_shift_up(cholD, s, eye),
+                                C.transpose(-1, -2))         # D_{i+s}^-1 C_i'
+        term_lo = _shift_down(C, s).transpose(-1, -2) @ _shift_down(DinvC, s)
+        D = D - term_lo - C @ tmp
+        C = -(C @ _shift_up(DinvC, s))
+        s *= 2
+    return lev_data, smallla.chol(D)
+
+
+def _pcr_solve(factors, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve with PCR factors; rhs (B, N, n) or (B, N, n, m)."""
+    lev_data, chol_final = factors
+    vec = rhs.dim() == 3
+    r = rhs[..., None] if vec else rhs
+    for cholD, C, s in lev_data:
+        Dinv_r = smallla.cho_solve(cholD, r)
+        r = (r - _shift_down(C, s).transpose(-1, -2) @ _shift_down(Dinv_r, s)
+             - C @ _shift_up(Dinv_r, s))
+    u = smallla.cho_solve(chol_final, r)
+    return u[..., 0] if vec else u
 
 
 def _H_solve(f: KKTFactors, bx: Primal) -> Primal:
@@ -151,11 +279,10 @@ def _H_solve(f: KKTFactors, bx: Primal) -> Primal:
 def solve_kkt(d: StageSOCP, f: KKTFactors, W, bx: Primal, by: torch.Tensor,
               bz: ConeVec, cfg: IPMConfig) -> Tuple[Primal, torch.Tensor, ConeVec]:
     """One structured KKT solve. Returns (ux, uy, uz)."""
-    del cfg
     spec = _spec_of(d)
     bxt = socp.primal_axpy(bx, socp.apply_GT(d, C.winv2_apply(spec, W, bz)), 1.0)
     ry = socp.apply_A(d, _H_solve(f, bxt)) - by
-    t1 = _tri_solve(f.tri, ry)
+    t1 = _tri_solve(cfg, f.tri, ry)
     coef = lane_sum(d.g_sig * t1) / f.sm_denom
     uy = t1 - f.sm_t * lane(coef, t1)
     ux = _H_solve(f, socp.primal_axpy(bxt, socp.apply_AT(d, uy), -1.0))
@@ -165,8 +292,11 @@ def solve_kkt(d: StageSOCP, f: KKTFactors, W, bx: Primal, by: torch.Tensor,
 
 
 def _P_apply(d: StageSOCP, x: Primal) -> Primal:
-    """The objective's quadratic part P x (pins, diagonal Q; Q_r1 is empty)."""
-    return Primal(w=x.w * ((1.0 - d.free_w) + d.Q_w), p=torch.zeros_like(x.p),
+    """The objective's quadratic part P x (pins, diagonal Q, rank-one rows)."""
+    Pw = x.w * ((1.0 - d.free_w) + d.Q_w)
+    if d.Q_r1.shape[2]:
+        Pw = Pw + (d.Q_r1.transpose(-1, -2) @ (d.Q_r1 @ x.w[..., None]))[..., 0]
+    return Primal(w=Pw, p=torch.zeros_like(x.p),
                   q=torch.zeros_like(x.q),
                   sig=x.sig * (1.0 - d.free_sig + d.Q_sig))
 

@@ -23,7 +23,11 @@ from successiveconvexification_tpu_torch.models.base import Model
 from successiveconvexification_tpu_torch.ops import cones as C
 from successiveconvexification_tpu_torch.ops import ipm, socp
 from successiveconvexification_tpu_torch.ops.cones import lane, lane_max, lane_sum
-from successiveconvexification_tpu_torch.ops.discretize import discretize, propagate
+from successiveconvexification_tpu_torch.ops.discretize import (
+    condense,
+    discretize,
+    propagate,
+)
 from successiveconvexification_tpu_torch.ops.precision import resolve_device
 from successiveconvexification_tpu_torch.utils.tree import tree_map, tree_where
 
@@ -125,15 +129,22 @@ def _unit_ipm_carry(model: Model, cfg: SolverConfig, params, X, U, sigma):
 def scvx_init(model: Model, params, cfg: SolverConfig) -> ScvxState:
     """Straight-line initial trajectories for a batch of params (B,)."""
     X, U, sigma = model.initial_guess(params, cfg.disc.K)
+    obj, defect, viol = merit_components(model, cfg, params, X, U, sigma)
+    tr = torch.full_like(sigma, cfg.scvx.tr_init)
+    return _fresh_state(model, cfg, params, X, U, sigma.clone(), tr, obj,
+                        defect, viol)
+
+
+def _fresh_state(model, cfg, params, X, U, sigma, tr, obj, defect, viol):
+    """A state with no iterations behind it and an invalid IPM carry."""
     Bn = X.shape[0]
     dtype, device = X.dtype, X.device
-    obj, defect, viol = merit_components(model, cfg, params, X, U, sigma)
     z = torch.zeros((Bn,), dtype=dtype, device=device)
     zi = torch.zeros((Bn,), dtype=torch.int32, device=device)
     false = torch.zeros((Bn,), dtype=torch.bool, device=device)
     inf = z + float("inf")
     return ScvxState(
-        X=X, U=U, sigma=sigma.clone(), tr_radius=z + cfg.scvx.tr_init,
+        X=X, U=U, sigma=sigma, tr_radius=tr,
         penalty_scale=z + 1.0, obj_nl=obj, defect_nl=defect, viol_nl=viol,
         converged=false, iterations=zi, n_accept=zi, n_reject=zi, n_bump=zi,
         accepted=false, rho=z, nu_norm=inf, dx_max=inf, pred_dec=inf,
@@ -151,6 +162,54 @@ def apply_boundary_conditions(model: Model, params, X: torch.Tensor) -> torch.Te
     last = term_pin * Xg[..., -1, :] + (1.0 - term_pin) * X[..., -1, :]
     return torch.cat([first[..., None, :], X[..., 1:-1, :], last[..., None, :]],
                      dim=-2)
+
+
+def scvx_warm_start(model: Model, params, cfg: SolverConfig, X, U, sigma,
+                    tr_radius=None, stm_correct: bool = True) -> ScvxState:
+    """Build a batched ScvxState from a previous solution (replanning).
+
+    ``params`` has a batch axis (B,); the previous solution is per lane
+    (X (B, K, nx), U (B, K, nu), sigma (B,)) or one nominal (X (K, nx),
+    U (K, nu), sigma a scalar) shared by every lane. The state lands on
+    X's device in the config's dtype.
+
+    The pinned boundary components are overwritten with the NEW params'
+    boundary conditions. ``stm_correct`` propagates the node-0 shift through
+    the previous solution's linearized dynamics, delta_k = Phi_{0->k}
+    delta_0 (``discretize.condense``), tapered to zero toward the pinned
+    terminal node, so the initial-condition mismatch is spread over the
+    horizon instead of concentrated in one interval's defect.
+
+    ``tr_radius``: initial trust radius (scalar or (B,)). Default: each
+    lane's nonlinear defect plus violation, clipped to [8 tr_min, tr_init].
+    """
+    dtype = getattr(torch, cfg.dtype)
+    params = to_device(params, cfg, X.device)
+    Bn, K = params.batch_shape[0], X.shape[-2]
+    X = X.to(dtype).expand(Bn, K, X.shape[-1]).contiguous()
+    U = U.to(dtype).expand(Bn, K, U.shape[-1]).contiguous()
+    sigma = torch.as_tensor(sigma, dtype=dtype, device=X.device).expand(Bn).clone()
+    X_prev = X
+    X = apply_boundary_conditions(model, params, X)
+    if stm_correct:
+        delta0 = X[:, 0] - X_prev[:, 0]
+        disc0 = discretize(model, params, X_prev, U, sigma,
+                           substeps=cfg.disc.substeps, foh=cfg.disc.foh)
+        Phi = condense(disc0)                               # (B, K-1, nx, nx)
+        # taper 1 -> 0 so the pinned terminal node stays put
+        w = 1.0 - torch.arange(1, K, dtype=dtype, device=X.device) / (K - 1)
+        shift = w[:, None] * (Phi @ delta0[:, None, :, None])[..., 0]
+        X = X + torch.cat([torch.zeros_like(X[:, :1]), shift], dim=1)
+        X = apply_boundary_conditions(model, params, X)
+    if model.project_state is not None:
+        X = model.project_state(X)
+    obj, defect, viol = merit_components(model, cfg, params, X, U, sigma)
+    if tr_radius is None:
+        tr = torch.clamp(defect + viol, 8.0 * cfg.scvx.tr_min, cfg.scvx.tr_init)
+    else:
+        tr = torch.as_tensor(tr_radius, dtype=dtype,
+                             device=X.device).expand(Bn).clone()
+    return _fresh_state(model, cfg, params, X, U, sigma, tr, obj, defect, viol)
 
 
 def scvx_iteration(model: Model, params, cfg: SolverConfig, st: ScvxState,
