@@ -6,25 +6,29 @@
 Run from the root of a checkout (it imports ``successiveconvexification_tpu_torch``
 from beside this file and never imports JAX or the JAX package). Phases:
 
-  1. the card's name and power limit (nvidia-smi) and the kernels' build;
+  1. the card's name and power limit (nvidia-smi) and the kernels' build
+     (three sources, one nvcc each, in parallel);
   2. the main path: a B=256 Monte-Carlo sweep of the 6-DoF rocket at K=50,
      8 RK4 substeps, float32, with the settings of ``bench.py`` (IPM cap 15,
      one refinement step, warm start, scan KKT, Ruiz on cold solves, SCvx
      cap 120, compaction with min bucket 32 and chunk 10), dispersions from
      a torch.Generator seeded with 0. Every kernel launch counter is set to
      0 just before and read just after; every kernel must have launched,
-     and the counts must match the IPM's structure;
+     and the counts must match the IPM's structure (and one discretize
+     launch per lockstep SCvx iteration);
   2b. the replan path (``bench.py``'s BENCH_MODE=replan, the same settings
      with the PCR KKT backend): a cold single-lane solve of the nominal
      scenario, r_init moved by (0.2, -0.2, 0.1), ``scvx_warm_start`` with
      the STM correction, then general-branch SCvx iterations with a device
      sync after each until the lane re-converges, at most bench.py's 40.
      Counters as in phase 2: chol, cho_solve and cho_solve_vec must match
-     the IPM's structure, and the fused route's kernels must not launch;
-     the cold solve must converge. Then one warm replan iteration under
-     torch.profiler (device busy share, device operations, aten calls), and
-     the same path at static_reg 1e-6 (``REPLAN_CHECK_REG`` says why) with
-     bench.py's cap of 40: both of its solves must converge;
+     the IPM's structure, discretize launch once per SCvx iteration and
+     once in the warm start, and the fused route's kernels must not
+     launch; the cold solve must converge. Then one warm
+     replan iteration under torch.profiler (device busy share, device
+     operations, aten calls), and the same path at static_reg 1e-6
+     (``REPLAN_CHECK_REG`` says why) with bench.py's cap of 40: its cold
+     solve must converge and its replan must re-converge;
   3. each kernel against its plain PyTorch version on inputs captured from
      those runs (main path: its first call inside the first IPM iteration,
      and every call of the 10th lockstep SCvx iteration, whose warm IPM ends
@@ -34,7 +38,12 @@ from beside this file and never imports JAX or the JAX package). Phases:
      success in its dtype is guaranteed, and there its residuals within
      their backward-error bounds and its error against the float64 plain
      version within the forward error those bounds permit (``check_call``);
-     the wrappers must refuse what the kernels do not take;
+     the discretize kernel against its plain version on the main path's
+     first and 10th lockstep calls, the last call of each replan run and a
+     synthetic call with drag and a NaN lane, each gated per lane and output
+     (``check_disc``), with the gap between the kernel's x_prop and the
+     plain ``propagate``'s printed; the wrappers must refuse what the
+     kernels do not take;
   4. f64 on the card beside the same runs on the CPU with the plain
      versions (child processes, Ruiz on every solve): B=4 of the main path
      at K=50, and the replan path at K=50 with the static KKT
@@ -42,10 +51,13 @@ from beside this file and never imports JAX or the JAX package). Phases:
      1e-6 relative, identical iteration counts and converged flags;
   5. each kernel's time at its path's shapes beside its bound, its plain
      version's time and, where one exists, one PyTorch library call's time
-     (chol and cho_solve also at a B=256 batch of blocks, for the record).
+     (chol and cho_solve also at a B=256 batch of blocks, for the record);
+     and the synchronized wall of one ``discretize`` call at B=256 with the
+     kernel against the same call with the plain version, median of 5.
 
 The line before the last is the kernels' JSON record; the last line is the
-run's verdict ``{"ok": true, "device": {...}}``. Any failed phase exits
+run's verdict ``{"ok": true, "device": {...}}``; the total wall is printed
+before them. Any failed phase exits
 non-zero without that line. ``--cpu-reference PATH`` and ``--cpu-replan
 PATH`` are the child modes of phase 4 (CPU only).
 """
@@ -71,18 +83,13 @@ MAIN_B, MAIN_K, MAIN_SUBSTEPS = 256, 50, 8
 REF_B = 4
 REPLAN_DR = (0.2, -0.2, 0.1)    # bench.py's replan move of r_init
 BENCH_REPLAN_ITERS = 40         # bench.py's replan loop
-# Static KKT regularization of the replan runs that must converge. At the
-# default 1e-8 the PCR solve's residual plateaus late in the IPM (PCR's
-# combined solution does not solve one nearby system), so most subproblems
-# end uncertified and the summation order decides the path. In f32 on the
-# H100 the replan re-converged within 40 iterations for 3 of 4 moves of
-# r_init with the kernels, 3 of 4 with chol and cho_solve swapped for their
-# plain versions, 2 of 4 with every kernel of the path swapped, and 3 of 4
-# on the CPU; every column stuck on some move, not on the same ones, and
-# bench.py's move sticks with the kernels (defect+violation 1.92e-4, above
-# the f32 feasibility floor of 1.67e-4). At 1e-6 both solves
-# converge, and in f64 PCR gives the scan route's trajectory (ROADMAP
-# Queue 3; scripts/replan_diagnostic.py takes these readings).
+# Static KKT regularization of the replan run that must re-converge and of
+# the f64 card-vs-CPU replan. At the default 1e-8 the PCR solve's residual
+# plateaus late in the IPM (PCR's combined solution does not solve one
+# nearby system), so most subproblems end uncertified and the summation
+# order decides the path. At 1e-6 every late subproblem certifies, and in
+# f64 PCR gives the scan route's trajectory (ROADMAP Queue 3;
+# scripts/replan_diagnostic.py takes these readings).
 REPLAN_CHECK_REG = 1e-6
 
 KERNELS = {
@@ -101,6 +108,9 @@ KERNELS = {
     "cho_solve": dict(
         source="successiveconvexification_tpu_torch/csrc/kkt.cu",
         replaces="successiveconvexification_tpu/ops/pallas_kkt.py:201"),
+    "discretize_lanes": dict(
+        source="successiveconvexification_tpu_torch/csrc/disc.cu",
+        replaces="successiveconvexification_tpu/ops/pallas_disc.py:144"),
 }
 # launches per IPM iteration and per cold init (ipm.py structure). An IPM
 # iteration factors once and runs three KKT solves (predictor, corrector,
@@ -108,14 +118,18 @@ KERNELS = {
 # once and runs two KKT solves. The fused route adds a tridiag_solve per
 # KKT solve and one for the Sherman-Morrison vector; the PCR route factors
 # H with chol and forms H^-1 E', H^-1 F' with two cho_solve launches.
+# Every SCvx iteration discretizes once (PER_SCVX), and so does the
+# replan's warm start.
 PER_ITER = {"fused_factor": 1, "tridiag_solve": 4, "cho_solve_vec": 6,
-            "chol": 0, "cho_solve": 0}
+            "chol": 0, "cho_solve": 0, "discretize_lanes": 0}
 PER_COLD = {"fused_factor": 1, "tridiag_solve": 3, "cho_solve_vec": 4,
-            "chol": 0, "cho_solve": 0}
+            "chol": 0, "cho_solve": 0, "discretize_lanes": 0}
 REPLAN_PER_ITER = {"fused_factor": 0, "tridiag_solve": 0, "cho_solve_vec": 6,
-                   "chol": 1, "cho_solve": 2}
+                   "chol": 1, "cho_solve": 2, "discretize_lanes": 0}
 REPLAN_PER_COLD = {"fused_factor": 0, "tridiag_solve": 0, "cho_solve_vec": 4,
-                   "chol": 1, "cho_solve": 2}
+                   "chol": 1, "cho_solve": 2, "discretize_lanes": 0}
+PER_SCVX = {"fused_factor": 0, "tridiag_solve": 0, "cho_solve_vec": 0,
+            "chol": 0, "cho_solve": 0, "discretize_lanes": 1}
 LATE_LOCKSTEP = 10
 
 
@@ -126,9 +140,10 @@ class PhaseError(RuntimeError):
 def _import_port():
     sys.path.insert(0, ROOT)
     import successiveconvexification_tpu_torch as P  # noqa: F401
-    from successiveconvexification_tpu_torch.ops import _build, cuda_fused, cuda_kkt
+    from successiveconvexification_tpu_torch.ops import (_build, cuda_disc,
+                                                         cuda_fused, cuda_kkt)
 
-    return P, _build, cuda_fused, cuda_kkt
+    return P, _build, cuda_fused, cuda_kkt, cuda_disc
 
 
 def _configs(P, dtype: str, K: int, substeps: int, bench: bool,
@@ -209,15 +224,17 @@ def run_replan(P, batch_mod, model, cfg, wrappers, caps, cap: int, card: str):
     just before and read just after; print its line and its launches, and
     fail unless the trajectories are finite and the counts match the IPM's
     structure (chol, cho_solve and cho_solve_vec launched, the fused route's
-    kernels not). ``caps`` keep the inputs of the first IPM iteration of the
-    cold solve and of every call of the last replan iteration."""
+    kernels not; discretize once per SCvx iteration and once in the warm
+    start). ``caps`` keep the inputs of the first IPM iteration of the cold
+    solve and of every call of the last replan iteration."""
     import torch
 
-    n_solve_cold = {"n": 0}
+    n_solve_cold = {"n": 0, "all": 0}
     orig_iter = batch_mod.scvx_iteration
 
     def counting_iteration(model_, params_, cfg_, st_, assume_warm_valid=False):
         n_solve_cold["n"] += 0 if assume_warm_valid else 1
+        n_solve_cold["all"] += 1
         return orig_iter(model_, params_, cfg_, st_,
                          assume_warm_valid=assume_warm_valid)
 
@@ -251,14 +268,19 @@ def run_replan(P, batch_mod, model, cfg, wrappers, caps, cap: int, card: str):
     # every replan iteration is a general-branch one: it pays a cold init
     n_cold = n_solve_cold["n"] + len(lat)
     n_body = launches["chol"] - n_cold
+    # SCvx iterations of the cold solve and of the replan, and the warm start
+    n_scvx = n_solve_cold["all"] + len(lat) + 1
     expect = {k: REPLAN_PER_ITER[k] * n_body + REPLAN_PER_COLD[k] * n_cold
-              for k in launches}
+              + PER_SCVX[k] * n_scvx for k in launches}
     print(f"  launches: {json.dumps(launches)}; expected from {n_body} IPM "
-          f"iterations + {n_cold} cold inits: {json.dumps(expect)}")
+          f"iterations + {n_cold} cold inits + {n_scvx} discretizations "
+          f"({n_solve_cold['all']} + {len(lat)} SCvx iterations and the warm "
+          f"start): {json.dumps(expect)}")
     if not all(bool(torch.isfinite(t).all()) for st in (r["cold"], r["warm"])
                for t in (st.X, st.U, st.sigma)):
         raise PhaseError("replan path: non-finite trajectories")
-    if any(launches[k] == 0 for k in ("chol", "cho_solve", "cho_solve_vec")):
+    if any(launches[k] == 0 for k in ("chol", "cho_solve", "cho_solve_vec",
+                                       "discretize_lanes")):
         raise PhaseError(f"replan path: a kernel never launched: {launches}")
     if launches != expect:
         raise PhaseError("replan path: launch counts do not match the IPM "
@@ -283,7 +305,7 @@ def cpu_replan(path: str) -> None:
     import torch
 
     torch.set_num_threads(2)
-    P, _, _, _ = _import_port()
+    P, *_ = _import_port()
     cfg = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False, kkt="pcr",
                    static_reg=REPLAN_CHECK_REG)
     t0 = time.perf_counter()
@@ -298,7 +320,7 @@ def cpu_reference(path: str) -> None:
     import torch
 
     torch.set_num_threads(4)
-    P, _, _, _ = _import_port()
+    P, *_ = _import_port()
     cfg = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False)
     pb = _dispersed(P, REF_B, torch.float64, "cpu")
     t0 = time.perf_counter()
@@ -756,6 +778,77 @@ def check_call(name, args, kernel, plain):
     return out
 
 
+# discretize_lanes gates, per lane and per output (A, Bm, Bp, S, z, x_end),
+# normwise against the float64 plain version (the reference), chosen before
+# any reading of the kernel on the card. Two correct implementations of this
+# function differ by rounding order only: on the CPU the JAX package's f64
+# integrator and the port's plain version differ by at most 3.1 f64 ulps
+# normwise (B=16 dispersed scenarios with drag, K=50, 8 substeps), and the
+# f32 plain version lies within 8.4 f32 ulps of the f64 one. So:
+#   f64 kernel: ||k64 - ref|| <= DISC_F64_ULPS u64 ||ref||;
+#   f32 kernel: ||k32 - ref|| <= DISC_F32_FACTOR max(||p32 - ref||,
+#               DISC_F32_FLOOR_ULPS u32 ||ref||), p32 the f32 plain version;
+# and both kernels finite in exactly the lanes where the reference is.
+DISC_F64_ULPS = 256
+DISC_F32_FACTOR = 8
+DISC_F32_FLOOR_ULPS = 32
+DISC_OUT = ("A", "Bm", "Bp", "S", "z", "x_end")
+
+
+def _disc_cast(args, dt):
+    model, params, X, U, sigma, substeps, foh = args
+    return (model, params.map(lambda v, tail: v.to(dt)), X.to(dt), U.to(dt),
+            sigma.to(dt), substeps, foh)
+
+
+def check_disc(args, kernel, plain):
+    """Hold one discretize_lanes call against its plain version: the plain
+    version in float64 (the reference) and float32, the kernel in both, on
+    the same inputs. Readings are fractions of the gates above (<= 1)."""
+    import torch
+
+    a32, a64 = _disc_cast(args, torch.float32), _disc_cast(args, torch.float64)
+    ref, p32 = plain(*a64), plain(*a32)
+    k32, k64 = kernel(*a32), kernel(*a64)
+    torch.cuda.synchronize()
+    n_lanes = ref[-1].numel() // ref[-1].shape[-1]
+
+    def lanes(o):
+        return o.double().reshape(n_lanes, -1)
+
+    def finite(outs):
+        return torch.stack([torch.isfinite(lanes(o)).all(1) for o in outs]).all(0)
+
+    def top(x, mask):
+        return float(x[mask].max()) if bool(mask.any()) else 0.0
+
+    fr, fp, fk32, fk64 = finite(ref), finite(p32), finite(k32), finite(k64)
+    both = fr & fp
+    u32, u64 = 2.0 ** -24, 2.0 ** -53
+    out = {"lanes": n_lanes, "ref_finite": int(fr.sum()),
+           "plain32_finite": int(fp.sum()), "kernel32_finite": int(fk32.sum()),
+           "kernel64_finite": int(fk64.sum()),
+           "kernel_finite_mismatch": int((fk32 != fr).sum() + (fk64 != fr).sum()),
+           "max_abs_err": max(top((lanes(k) - lanes(p)).abs().amax(1), both)
+                              for k, p in zip(k32, p32))}
+    ok = out["kernel_finite_mismatch"] == 0
+    for name, r, o64, o32, op in zip(DISC_OUT, ref, k64, k32, p32):
+        r = lanes(r)
+        n = r.norm(dim=1)
+        e64, e32, ep = ((lanes(o) - r).norm(dim=1) for o in (o64, o32, op))
+        read64 = e64 / (DISC_F64_ULPS * u64 * n).clamp(min=1e-300)
+        read32 = e32 / (DISC_F32_FACTOR * torch.maximum(
+            ep, DISC_F32_FLOOR_ULPS * u32 * n)).clamp(min=1e-300)
+        out[f"{name}_f64"] = top(read64, fr)
+        out[f"{name}_f32"] = top(read32, both)
+        out[f"{name}_ulps64"] = top(e64 / (u64 * n).clamp(min=1e-300), fr)
+        out[f"{name}_ulps32_kernel"] = top(e32 / (u32 * n).clamp(min=1e-300), both)
+        out[f"{name}_ulps32_plain"] = top(ep / (u32 * n).clamp(min=1e-300), both)
+        ok &= out[f"{name}_f64"] <= 1.0 and out[f"{name}_f32"] <= 1.0
+    out["ok"] = bool(ok)
+    return out
+
+
 def _time_ms(fn, reps: int = 20) -> float:
     """Device time of one call: CUDA events around ``reps`` calls, after a
     warm-up. A spin kernel holds the stream while the host enqueues the
@@ -788,6 +881,28 @@ def _work(name: str, args, esize: int):
     every input read once, every output written once. ``chol`` reads only
     the lower triangle of each A block and the solves only that of each L
     block, so only it counts."""
+    if name == "discretize_lanes":
+        model, params, X, U, sigma, substeps, foh = args
+        nx, nu = model.nx, model.nu
+        K = X.shape[-2]
+        n_sc = X.numel() // (K * nx)             # scenarios: sigma, params
+        n_lanes = n_sc * (K - 1)
+        n_p = model.cuda_params(params).shape[-1]
+        elems = (X.numel() + U.numel() + n_sc * (1 + n_p)
+                 + n_lanes * (nx * nx + 2 * nx * nu + 3 * nx))
+        # per RK stage (csrc/disc.cu): the rocket dynamics' value once (133
+        # flops) and their 17 tangents (241 flops each; both counted from
+        # the source on dual numbers, sign flips free), sigma scaling of
+        # [A | B], w = sA x + sB u, sA Phi, P sA, P sB, P f, P w, the lam
+        # scalings, sigma f, u(tau), and the RK4 bookkeeping (13 flops a
+        # carry value per step: 518 values); then Phi Bm, Phi Bp, Phi S,
+        # Phi z once
+        n_aug = nx + 2 * nx * nx + 2 * nx * nu + 2 * nx
+        stage = (133 + (nx + nu) * 241 + nx * (nx + nu) + 2 * nx * (nx + nu)
+                 + 2 * (2 * nx ** 3) + 2 * nx * nx * nu + 2 * (2 * nx * nx)
+                 + 2 * nx * nu + nx + 3 * nu + 13 / 4 * n_aug)
+        final = 2 * (2 * nx * nx * nu) + 2 * (2 * nx * nx)
+        return elems * esize, n_lanes * (4 * substeps * stage + final)
     if name == "fused_factor":
         G, wrow, uv, ucoef, hdiag, E, F, dpq, rng = args
         B, K, R, nw = G.shape
@@ -822,12 +937,15 @@ def _work(name: str, args, esize: int):
 def _time_kernel(name, args, kernel, plain, library):
     """Device ms of the kernel, its plain version and the library call (or
     None), and the bound for this call's work."""
+    import torch
+
     ms = _time_ms(lambda: kernel(*args))
     # few reps: the plain versions launch hundreds of small kernels a call,
     # and the stream's queue must hold them all while held
     plain_ms = _time_ms(lambda: plain(*args), reps=2)
     lib_ms = None if library is None else _time_ms(lambda: library(*args))
-    nbytes, flops = _work(name, args, args[0].element_size())
+    esize = next(a for a in args if torch.is_tensor(a)).element_size()
+    nbytes, flops = _work(name, args, esize)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS["float32"] * 1e3
     return ms, plain_ms, lib_ms, {
@@ -894,15 +1012,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        P, _build, cuda_fused, cuda_kkt = _import_port()
+        P, _build, cuda_fused, cuda_kkt, cuda_disc = _import_port()
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
     from successiveconvexification_tpu_torch.parallel import batch as batch_mod
+    from successiveconvexification_tpu_torch.ops import discretize as disc_mod
     from successiveconvexification_tpu_torch.ops import precision
 
     precision.full_precision()
+    t_start = time.perf_counter()
     children = []
     ref_path = os.path.join(ROOT, "build", "chip_smoke_cpu_reference.json")
     replan_path = os.path.join(ROOT, "build", "chip_smoke_cpu_replan.json")
@@ -946,7 +1066,8 @@ def main() -> int:
 
         wrappers = {"fused_factor": cuda_fused.fused_factor,
                     "tridiag_solve": cuda_kkt.tridiag_solve,
-                    "cho_solve_vec": cuda_kkt.cho_solve_vec}
+                    "cho_solve_vec": cuda_kkt.cho_solve_vec,
+                    "discretize_lanes": cuda_disc.discretize_lanes}
         caps = {
             "fused_factor": Capture(cuda_fused, "fused_factor",
                                     PER_COLD["fused_factor"]),
@@ -954,10 +1075,13 @@ def main() -> int:
                                      PER_COLD["tridiag_solve"]),
             "cho_solve_vec": Capture(cuda_kkt, "cho_solve_vec",
                                      PER_COLD["cho_solve_vec"]),
+            # the first lockstep iteration's call
+            "discretize_lanes": Capture(cuda_disc, "discretize_lanes", 0),
         }
         batch_mod.scvx_iteration = counting_iteration
         try:
-            with caps["fused_factor"], caps["tridiag_solve"], caps["cho_solve_vec"]:
+            with caps["fused_factor"], caps["tridiag_solve"], \
+                    caps["cho_solve_vec"], caps["discretize_lanes"]:
                 for w in wrappers.values():
                     w.launches = 0
                 torch.cuda.synchronize()
@@ -990,9 +1114,10 @@ def main() -> int:
         print(f"main path launches: {json.dumps(launches)}")
         n_body = launches["fused_factor"] - counts["cold"]
         expect = {k: PER_ITER[k] * n_body + PER_COLD[k] * counts["cold"]
-                  for k in launches}
+                  + PER_SCVX[k] * counts["lockstep"] for k in launches}
         print(f"  expected from {n_body} IPM iterations + {counts['cold']} cold "
-              f"inits: {json.dumps(expect)}")
+              f"inits + {counts['lockstep']} SCvx iterations: "
+              f"{json.dumps(expect)}")
         if not (finite and shapes):
             raise PhaseError("main path: non-finite or misshapen trajectories")
         if n_conv < MAIN_B // 2:
@@ -1007,21 +1132,16 @@ def main() -> int:
         rcaps = {"chol": Capture(cuda_kkt, "chol", REPLAN_PER_COLD["chol"]),
                  "cho_solve": Capture(cuda_kkt, "cho_solve",
                                       REPLAN_PER_COLD["cho_solve"])}
+        rdcap = Capture(cuda_disc, "discretize_lanes", 0)
         # bench.py's settings: the latency readings, the kernels' inputs
         cfg_r = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True,
                          kkt="pcr")
-        with rcaps["chol"], rcaps["cho_solve"]:
+        with rcaps["chol"], rcaps["cho_solve"], rdcap:
             r, rlaunches = run_replan(P, batch_mod, model, cfg_r, wrappers,
-                                      rcaps, BENCH_REPLAN_ITERS, card)
+                                      {**rcaps, "discretize_lanes": rdcap},
+                                      BENCH_REPLAN_ITERS, card)
         if not r["summary"]["cold_converged"]:
             raise PhaseError("replan path: the cold solve did not converge")
-        if not r["summary"]["converged"]:
-            print(f"  the replan did not re-converge within bench.py's "
-                  f"{BENCH_REPLAN_ITERS} iterations at the default static_reg "
-                  "(REPLAN_CHECK_REG, ROADMAP Queue 3: the PCR solves of the "
-                  "f32 IPM end uncertified, the summation order decides the "
-                  "path, and the plain versions stick too); the run at "
-                  f"{REPLAN_CHECK_REG:g} holds the re-convergence")
         busy = profile_iteration(P, model, cfg_r, r)
         print(f"one warm replan iteration under torch.profiler: wall "
               f"{busy['wall_ms']:.1f} ms, {busy['device_ops']} device "
@@ -1029,14 +1149,22 @@ def main() -> int:
               f"({100 * busy['busy_ms'] / busy['wall_ms']:.1f}% of the wall), "
               f"{busy['aten_calls']} aten operator calls (nested included)")
         # the same path at static_reg 1e-6 and bench.py's cap: both solves
-        # must converge
+        # must converge; its last discretize call is held in phase 3 too
         cfg_r6 = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True,
                           kkt="pcr", static_reg=REPLAN_CHECK_REG)
-        r6, _ = run_replan(P, batch_mod, model, cfg_r6, wrappers, {},
-                           BENCH_REPLAN_ITERS, card)
+        rdcap6 = Capture(cuda_disc, "discretize_lanes", 0)
+        with rdcap6:
+            r6, _ = run_replan(P, batch_mod, model, cfg_r6, wrappers,
+                               {"discretize_lanes": rdcap6},
+                               BENCH_REPLAN_ITERS, card)
         if not (r6["summary"]["cold_converged"] and r6["summary"]["converged"]):
             raise PhaseError(f"replan path at static_reg {REPLAN_CHECK_REG:g}: "
                              "a solve did not converge")
+        if not r["summary"]["converged"]:
+            print(f"  the replan at static_reg {cfg_r.ipm.static_reg:g} did "
+                  f"not re-converge within bench.py's {BENCH_REPLAN_ITERS} "
+                  "iterations (ROADMAP Queue 3: its PCR solves end "
+                  "uncertified and the summation order decides the path)")
 
         # the CPU halves of phase 4 run beside phases 3 and 5 (not beside the
         # host-bound paths above, whose walls they would inflate)
@@ -1062,8 +1190,10 @@ def main() -> int:
               "largest over the calls and over the lanes where success in the "
               "dtype is guaranteed")
         max_abs, all_checks, failed = {}, {}, []
+        dcap = caps["discretize_lanes"]
         phases = [(name, cap, "first IPM iteration",
-                   f"SCvx iteration {LATE_LOCKSTEP}") for name, cap in caps.items()]
+                   f"SCvx iteration {LATE_LOCKSTEP}")
+                  for name, cap in caps.items() if cap is not dcap]
         phases += [(name, cap, "first IPM iteration of the cold replan solve",
                     "last replan iteration") for name, cap in rcaps.items()]
         for name, cap, first_when, late_when in phases:
@@ -1102,6 +1232,71 @@ def main() -> int:
                       f"{'ok' if n_bad == 0 else f'FAIL in {n_bad}'}")
                 if n_bad:
                     failed.append(f"{name} ({when})")
+        # discretize: the main path's first and 10th lockstep calls, each
+        # replan run's last linearization, and the first call again with
+        # drag in every scenario but the first and a NaN node (its lane
+        # must come out NaN)
+        m, prm, X0, U0, s0, sub, foh = dcap.first
+        Xn = X0.clone()
+        Xn[1, 3] = float("nan")
+        synth = (m, prm.replace(cd_a=torch.linspace(
+            0.0, 0.3, X0.shape[0], dtype=X0.dtype, device=X0.device)),
+            Xn, U0, s0, sub, foh)
+        print(f"check discretize_lanes gates, per lane and output "
+              f"{'/'.join(DISC_OUT)}: f64 kernel within {DISC_F64_ULPS} f64 "
+              f"ulps of the f64 plain, normwise; f32 kernel within "
+              f"{DISC_F32_FACTOR}x the f32 plain's distance from it (floor "
+              f"{DISC_F32_FLOOR_ULPS} f32 ulps); finite in exactly the lanes "
+              "where the f64 plain is")
+        for when, a in (("main path, first SCvx iteration", dcap.first),
+                        (f"main path, SCvx iteration {LATE_LOCKSTEP}",
+                         dcap.late[0] if dcap.late else None),
+                        ("replan path, last iteration",
+                         rdcap.late[0] if rdcap.late else None),
+                        (f"replan path at static_reg {REPLAN_CHECK_REG:g}, "
+                         "last iteration",
+                         rdcap6.late[0] if rdcap6.late else None),
+                        ("synthetic: drag, one NaN node", synth)):
+            if a is None:
+                raise PhaseError(f"discretize_lanes: no captured call for {when}")
+            before = cuda_disc.discretize_lanes.launches
+            res = check_disc(a, cuda_disc.discretize_lanes,
+                             cuda_disc.discretize_lanes_plain)
+            if cuda_disc.discretize_lanes.launches != before + 2:
+                raise PhaseError("discretize_lanes: a kernel call did not count "
+                                 "one launch")
+            # the merit's end states (plain propagate) beside the kernel's:
+            # rounding-order apart, a reading and not a gate
+            x_lin = disc_mod.discretize(*a).x_prop
+            x_nl = disc_mod.propagate(*a)
+            gap = (x_lin.double() - x_nl.double()).reshape(-1, x_nl.shape[-1])
+            fin = torch.isfinite(gap).all(1)
+            res["x_prop_gap_l1"] = float(gap[fin].abs().sum())
+            res["x_prop_gap_ulps"] = float(
+                (gap.norm(dim=1) / (x_nl.double().reshape(gap.shape).norm(
+                    dim=1) * 2.0 ** -24).clamp(min=1e-300))[fin].max())
+            res["defect_l1"] = float((x_nl - a[2][..., 1:, :]).reshape(
+                gap.shape)[fin].abs().sum())
+            all_checks[f"discretize_lanes / {when}"] = [res]
+            max_abs.setdefault("discretize_lanes", res["max_abs_err"])
+            reads = "; ".join(
+                f"{o} {res[o + '_f64']:.3f}/{res[o + '_f32']:.3f} (ulps f64 "
+                f"{res[o + '_ulps64']:.1f}, f32 kernel "
+                f"{res[o + '_ulps32_kernel']:.1f} plain "
+                f"{res[o + '_ulps32_plain']:.1f})" for o in DISC_OUT)
+            print(f"check discretize_lanes ({when}, {res['lanes']} lanes, X "
+                  f"{tuple(a[2].shape)}): reference finite in "
+                  f"{res['ref_finite']}, plain f32 {res['plain32_finite']}, "
+                  f"kernel f32 {res['kernel32_finite']}, f64 "
+                  f"{res['kernel64_finite']} (mismatches "
+                  f"{res['kernel_finite_mismatch']}); readings f64/f32: {reads}"
+                  f"; kernel x_prop - plain propagate: l1 "
+                  f"{res['x_prop_gap_l1']:.3e} (plain defect l1 "
+                  f"{res['defect_l1']:.3e}), at most "
+                  f"{res['x_prop_gap_ulps']:.1f} f32 ulps normwise a lane -> "
+                  f"{'ok' if res['ok'] else 'FAIL'}")
+            if not res["ok"]:
+                failed.append(f"discretize_lanes ({when})")
         with open(os.path.join(ROOT, "build", "chip_smoke_checks.json"), "w") as f:
             json.dump(all_checks, f)
         if failed:
@@ -1128,6 +1323,15 @@ def main() -> int:
             ("cho_solve CPU and CUDA tensors mixed", ValueError,
              lambda: cuda_kkt.cho_solve(torch.eye(4, device=dev)[None],
                                         torch.zeros(1, 4, 3))),
+            ("discretize_lanes float16", TypeError, lambda: cuda_disc.discretize_lanes(
+                *_disc_cast(dcap.first, torch.float16))),
+            ("discretize_lanes CPU and CUDA tensors mixed", ValueError,
+             lambda: cuda_disc.discretize_lanes(
+                 m, prm, X0, U0.cpu(), s0, sub, foh)),
+            ("discretize_lanes, a model without CUDA dynamics", ValueError,
+             lambda: cuda_disc.discretize_lanes(dataclasses.replace(
+                 m, name="no_cuda_dynamics", cuda_params=None),
+                 prm, X0, U0, s0, sub, foh)),
         )
         for what, exc, call in refusals:
             try:
@@ -1143,8 +1347,10 @@ def main() -> int:
             "chol": lambda A: torch.linalg.cholesky_ex(A),
             "cho_solve": lambda L, B: torch.cholesky_solve(B, L)}
         records = []
+        plains["discretize_lanes"] = cuda_disc.discretize_lanes_plain
         timed = [(name, cap.first, launches[name], "main path")
                  for name, cap in caps.items()]
+        timed.append(("discretize_lanes", rdcap.late[0], None, "replan path"))
         timed += [(name, cap.first, rlaunches[name], "replan path")
                   for name, cap in rcaps.items()]
         # chol and cho_solve also at a B=256 batch of the replan blocks
@@ -1160,11 +1366,38 @@ def main() -> int:
                                 "max_abs_err": max_abs[name],
                                 **{k: v for k, v in rec.items()
                                    if k not in ("mbytes", "gflop")}})
-            print(f"time {name} ({where}) at {[tuple(a.shape) for a in args]}: "
+            print(f"time {name} ({where}) at "
+                  f"{[tuple(a.shape) for a in args if torch.is_tensor(a)]}: "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                   f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} "
                   f"({rec['mbytes']:.3f} MB, {rec['gflop']:.5f} GFLOP); {card}")
+
+        # the A/B: one discretize call at B=256 (the main path's first),
+        # synchronized, the kernel against the plain version, in turns
+        walls = {"kernel": [], "plain": []}
+        kernel_fn = cuda_disc.discretize_lanes
+        for rep_i in range(5):
+            for which in (("kernel", "plain") if rep_i % 2 == 0
+                          else ("plain", "kernel")):
+                cuda_disc.discretize_lanes = (
+                    kernel_fn if which == "kernel"
+                    else cuda_disc.discretize_lanes_plain)
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    disc_mod.discretize(m, prm, X0, U0, s0, sub, foh)
+                    torch.cuda.synchronize()
+                finally:
+                    cuda_disc.discretize_lanes = kernel_fn
+                walls[which].append(1e3 * (time.perf_counter() - t0))
+        med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+        print(f"A/B discretize at B={X0.shape[0]}, K={X0.shape[1]}, {sub} "
+              f"substeps, float32, synchronized wall, median of 5 in turns: "
+              f"kernel {med['kernel']:.3f} ms, plain {med['plain']:.3f} ms "
+              f"({med['plain'] / med['kernel']:.1f}x); all kernel "
+              f"{[round(w, 3) for w in walls['kernel']]}, plain "
+              f"{[round(w, 1) for w in walls['plain']]}; {card}")
 
         # ---- 4. f64 on the card against the CPU -------------------------------
         cfg64 = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False)
@@ -1212,6 +1445,8 @@ def main() -> int:
         if not (rel_r <= 1e-6 and same_r):
             raise PhaseError("f64 card replan disagrees with the CPU replan")
 
+        print(f"chip_smoke: all phases passed in "
+              f"{time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": records}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,

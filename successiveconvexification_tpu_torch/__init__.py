@@ -3,8 +3,9 @@
 A second package beside ``successiveconvexification_tpu`` (the JAX
 reference), with the same module names where a reader looks for a
 counterpart. It imports ``torch`` only. Plain tensor code is PyTorch; the
-KKT kernels of the IPM (five so far) are CUDA C++ for Hopper (``csrc/``),
-built with nvcc on first use and bound with ctypes. Every tensor carries an explicit
+discretize kernel and the KKT kernels of the IPM (six kernels so far) are
+CUDA C++ for Hopper (``csrc/``), built with nvcc on first use and bound
+with ctypes. Every tensor carries an explicit
 scenario axis where the JAX package used ``vmap``.
 
 Entry points take ``device=None``, meaning the card; they raise when no card

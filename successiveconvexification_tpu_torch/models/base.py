@@ -43,6 +43,9 @@ class Model:
     nr: int = -1
     init_pinned_r: Tuple[bool, ...] = ()
     term_pinned_r: Tuple[bool, ...] = ()
+    # params -> (P..., n), the fields the discretize kernel's dynamics read
+    # per scenario; set exactly when csrc/disc.cu has this model's dynamics
+    cuda_params: Callable[[Any], torch.Tensor] | None = None
 
     def f_and_jacobians(self, params, x: torch.Tensor, u: torch.Tensor):
         """(f, A, B) = (f(x,u), df/dx, df/du), batched over leading dims.

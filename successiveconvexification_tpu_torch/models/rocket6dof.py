@@ -224,6 +224,21 @@ def dynamics(params: Rocket6DoFParams, x: torch.Tensor,
     return torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], dim=-1)
 
 
+# the fields csrc/disc.cu's rocket6dof dynamics read, in its order
+KERNEL_FIELDS = ("alpha_m", "cd_a", "g_i", "J_b", "r_t")
+
+
+def kernel_params(params: Rocket6DoFParams) -> torch.Tensor:
+    """(P..., 11): alpha_m, cd_a, g_i, J_b, r_t of every scenario in one
+    contiguous array; fields of batch shape () or broadcast are expanded to
+    the common batch shape."""
+    parts = [(getattr(params, k), _FIELD_TAIL[k]) for k in KERNEL_FIELDS]
+    lead = torch.broadcast_shapes(*(v.shape[:v.dim() - len(t)]
+                                    for v, t in parts))
+    return torch.cat([v.expand(lead + t).reshape(lead + (-1,))
+                      for v, t in parts], dim=-1)
+
+
 # --------------------------------------------------------------------------- cones
 N_LIN = 2                      # mass lower bound, linearized thrust lower bound
 SOC_DIMS = (3, 3, 4, 4, 4)     # glideslope, tilt, rate, thrust-ub, gimbal
@@ -379,6 +394,7 @@ def rocket6dof_model() -> Model:
             nr=NX - 1,
             init_pinned_r=tuple([True] * 7 + [False] * 3 + [True] * 3),
             term_pinned_r=tuple([False] + [True] * 12),
+            cuda_params=kernel_params,
         )
     return _MODEL["m"]
 

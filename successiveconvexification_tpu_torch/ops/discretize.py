@@ -13,10 +13,13 @@ controls:
     Bmdot  = lam_m * sigma * P B,  Bpdot = lam_p * sigma * P B
     Sdot   = P f,                  zdot  = -sigma * P (A x + B u)
 
-The K-1 intervals are independent, so they integrate together as one batch
-``(..., K-1, aug)`` beside the scenario batch axis; the Jacobians come from
-one forward-mode pass per RK stage (``Model.f_and_jacobians``). This is plain
-PyTorch: the JAX package runs this stage as plain XLA too.
+The K-1 intervals are independent, one lane each beside the scenario axis.
+On the card they integrate in one kernel launch (``cuda_disc.discretize_lanes``,
+csrc/disc.cu, the counterpart of the JAX package's ``pallas_disc``); on the
+CPU in its plain PyTorch version (``cuda_disc.discretize_lanes_plain``). The
+tensors' device alone picks between them. The retraction composition and
+``propagate`` stay plain PyTorch, where the JAX package has them outside any
+kernel too.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from typing import NamedTuple
 import torch
 
 from successiveconvexification_tpu_torch.models.base import Model
+from successiveconvexification_tpu_torch.ops import cuda_disc
+from successiveconvexification_tpu_torch.ops.integrate import mv, rk4
 
 
 class Discretization(NamedTuple):
@@ -40,23 +45,6 @@ class Discretization(NamedTuple):
     defect: torch.Tensor  # (..., K-1, nx)
 
 
-def _mv(M, v):
-    return (M @ v[..., None])[..., 0]
-
-
-def _rk4(step_fn, aug, substeps: int, h: float):
-    dt = h / substeps
-    for i in range(substeps):
-        tau = i * dt
-        k1 = step_fn(tau, aug)
-        k2 = step_fn(tau + dt / 2, [a + dt / 2 * k for a, k in zip(aug, k1)])
-        k3 = step_fn(tau + dt / 2, [a + dt / 2 * k for a, k in zip(aug, k2)])
-        k4 = step_fn(tau + dt, [a + dt * k for a, k in zip(aug, k3)])
-        aug = [a + dt / 6 * (a1 + 2 * a2 + 2 * a3 + a4)
-               for a, a1, a2, a3, a4 in zip(aug, k1, k2, k3, k4)]
-    return aug
-
-
 def discretize(model: Model, params, X: torch.Tensor, U: torch.Tensor,
                sigma: torch.Tensor, substeps: int,
                foh: bool = True) -> Discretization:
@@ -65,46 +53,9 @@ def discretize(model: Model, params, X: torch.Tensor, U: torch.Tensor,
     X (..., K, nx), U (..., K, nu), sigma (...); params with batch shape
     broadcasting against ``X.shape[:-2]``.
     """
-    K, nx = X.shape[-2], X.shape[-1]
-    nu = model.nu
-    h = 1.0 / (K - 1)
-    p1 = params.unsqueeze(1)
-    sig = sigma[..., None]
-    xk, uk, ukp1 = X[..., :-1, :], U[..., :-1, :], U[..., 1:, :]
-    lead = xk.shape[:-1]
-    dtype, device = X.dtype, X.device
-
-    def aug_dot(tau, aug):
-        x, Phi, P, Bm, Bp, S, z = aug
-        lam_p = tau / h if foh else 0.0
-        lam_m = 1.0 - lam_p
-        u = lam_m * uk + lam_p * ukp1
-        fv, Ac, Bc = model.f_and_jacobians(p1, x, u)
-        sA = sig[..., None, None] * Ac
-        sB = sig[..., None, None] * Bc
-        PsB = P @ sB
-        return [
-            sig[..., None] * fv,
-            sA @ Phi,
-            -(P @ sA),
-            lam_m * PsB,
-            lam_p * PsB,
-            _mv(P, fv),
-            -_mv(P, _mv(sA, x) + _mv(sB, u)),
-        ]
-
-    eye = torch.eye(nx, dtype=dtype, device=device).expand(lead + (nx, nx))
-    aug = [
-        xk, eye, eye,
-        torch.zeros(lead + (nx, nu), dtype=dtype, device=device),
-        torch.zeros(lead + (nx, nu), dtype=dtype, device=device),
-        torch.zeros(lead + (nx,), dtype=dtype, device=device),
-        torch.zeros(lead + (nx,), dtype=dtype, device=device),
-    ]
-    x_end, Phi, _, Bm, Bp, S, z = _rk4(aug_dot, aug, substeps, h)
-    A = Phi
-    Bm, Bp = Phi @ Bm, Phi @ Bp
-    S, z = _mv(Phi, S), _mv(Phi, z)
+    lanes = (cuda_disc.discretize_lanes_plain if X.device.type == "cpu"
+             else cuda_disc.discretize_lanes)
+    A, Bm, Bp, S, z, x_end = lanes(model, params, X, U, sigma, substeps, foh)
     x_prop = x_end
     if model.project_jac is not None:
         # retraction-composed flow: x_{k+1} = P(phi) ~ P(y) + Jp (phi - y)
@@ -114,8 +65,8 @@ def discretize(model: Model, params, X: torch.Tensor, U: torch.Tensor,
         A = Jp @ A
         Bm = Jp @ Bm
         Bp = Jp @ Bp
-        S = _mv(Jp, S)
-        z = _mv(Jp, z) + (x_prop - _mv(Jp, y))
+        S = mv(Jp, S)
+        z = mv(Jp, z) + (x_prop - mv(Jp, y))
     defect = x_prop - X[..., 1:, :]
     return Discretization(A=A, Bm=Bm, Bp=Bp, S=S, z=z, x_prop=x_prop,
                           defect=defect)
@@ -135,7 +86,7 @@ def propagate(model: Model, params, X: torch.Tensor, U: torch.Tensor,
         u = (1.0 - lam_p) * uk + lam_p * ukp1
         return [sig * model.f(p1, aug[0], u)]
 
-    (x_end,) = _rk4(xdot, [X[..., :-1, :]], substeps, h)
+    (x_end,) = rk4(xdot, [X[..., :-1, :]], substeps, h)
     if model.project_jac is not None:
         x_end = model.project_state(x_end)
     return x_end
@@ -162,7 +113,7 @@ def _affine_compose(e1, e2):
     (A2, c2) o (A1, c1) = (A2 A1, A2 c1 + c2)."""
     A1, c1 = e1
     A2, c2 = e2
-    return A2 @ A1, _mv(A2, c1) + c2
+    return A2 @ A1, mv(A2, c1) + c2
 
 
 def condense(disc: Discretization) -> torch.Tensor:
@@ -181,7 +132,7 @@ def linear_rollout(disc: Discretization, x0: torch.Tensor, U: torch.Tensor,
     Composes x_{k+1} = A_k x_k + Bm_k u_k + Bp_k u_{k+1} + S_k sigma + z_k
     over the horizon as one scan of affine maps. x0 (..., nx), U (..., K, nu),
     sigma (...). Returns (..., K-1, nx): the states at nodes 1..K-1."""
-    c = (_mv(disc.Bm, U[..., :-1, :]) + _mv(disc.Bp, U[..., 1:, :])
+    c = (mv(disc.Bm, U[..., :-1, :]) + mv(disc.Bp, U[..., 1:, :])
          + disc.S * sigma[..., None, None] + disc.z)
     Phi, ccum = _hillis_steele(_affine_compose, [disc.A, c], [-3, -2])
-    return _mv(Phi, x0[..., None, :]) + ccum
+    return mv(Phi, x0[..., None, :]) + ccum

@@ -29,7 +29,9 @@ kernels on the card and their plain PyTorch versions on the CPU:
     (``build_H``), factored by ``cuda_kkt.chol``, H^-1 E', H^-1 F' by
     ``cuda_kkt.cho_solve``, and the block-tridiagonal Schur system by
     parallel cyclic reduction (``_pcr_factor`` / ``_pcr_solve``, plain
-    ``torch.linalg`` like the JAX package's XLA ``smallla`` there).
+    ``torch.linalg`` like the JAX package's XLA ``smallla`` there, but
+    always in float64, where the JAX package reduces in the problem's
+    dtype: see ``_pcr_factor``).
 
 Both solve the stage Hessian with ``cuda_kkt.cho_solve_vec``.
 """
@@ -228,6 +230,25 @@ def _shift_down(a: torch.Tensor, k: int):
 
 
 def _pcr_factor(D: torch.Tensor, O: torch.Tensor):
+    """``_pcr_reduce`` in float64 whatever the system's dtype (the factors
+    are float64; ``_pcr_solve`` answers in the rhs's dtype). PCR is not
+    backward stable: on an SPD block-tridiagonal system of condition 4e11
+    its normwise residual is 5e-8 in float64, the block Cholesky sweep's
+    1e-17. In float32 that error swamps the IPM's tolerances, late
+    subproblems of the replan path return steps worse than none, and the
+    f32 replan on the H100 stuck for a third to a half of the moves of
+    r_init; with the reduction in float64 it re-converged for every one
+    (PERF.md section 6). A float64 system is reduced as before."""
+    return _pcr_reduce(D.double(), O.double())
+
+
+def _pcr_solve(factors, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve with ``_pcr_factor``'s factors; rhs (B, N, n) or (B, N, n, m)
+    of any dtype, solved in float64 and answered in its own."""
+    return _pcr_back(factors, rhs.double()).to(rhs.dtype)
+
+
+def _pcr_reduce(D: torch.Tensor, O: torch.Tensor):
     """Parallel cyclic reduction of an SPD block-tridiagonal system along
     axis 1: log2(N) levels of batched small-block algebra instead of an
     N-step sequential sweep. D (B, N, n, n), O (B, N-1, n, n).
@@ -258,8 +279,9 @@ def _pcr_factor(D: torch.Tensor, O: torch.Tensor):
     return lev_data, smallla.chol(D)
 
 
-def _pcr_solve(factors, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve with PCR factors; rhs (B, N, n) or (B, N, n, m)."""
+def _pcr_back(factors, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve with ``_pcr_reduce``'s factors, in their dtype; rhs (B, N, n)
+    or (B, N, n, m)."""
     lev_data, chol_final = factors
     vec = rhs.dim() == 3
     r = rhs[..., None] if vec else rhs
