@@ -29,42 +29,73 @@ from beside this file and never imports JAX or the JAX package). Phases:
      operations, aten calls), and the same path at static_reg 1e-6
      (``REPLAN_CHECK_REG`` says why) with bench.py's cap of 40: its cold
      solve must converge and its replan must re-converge;
+  2c. the penalized path: the main path's sweep (the same dispersions and
+     settings) of the rocket with one penalized direction a node, the unit
+     thrust direction (``penalized_model``), so the subproblems have
+     rank-one quadratic rows and the ``scan`` route factors without the
+     fused kernel: chol, cho_solve, the block-tridiagonal factor
+     (tridiag_factor), tridiag_solve and cho_solve_vec must match the IPM's
+     structure and the fused factor must not launch; the converged sigma
+     is compared lane by lane with the main path's;
+  2d. the point-mass path: a B=256 sweep of the 3-DoF point mass at K=30
+     with a fixed final time (BASELINE config 1, minimum fuel), the main
+     path's dispersion stds and settings; the fused route's kernels and the
+     discretize kernel's point-mass instantiation must launch as the IPM's
+     structure says;
+  2e. the factor-and-solve kernel (fused_chol_solve) on its only caller in
+     the JAX package, the test vehicle of ``tests/test_pallas_kkt.py``:
+     N=300 SPD 13 x 13 blocks, two right-hand sides, f64, against
+     ``torch.linalg.solve`` within that test's tolerance;
   3. each kernel against its plain PyTorch version on inputs captured from
      those runs (main path: its first call inside the first IPM iteration,
-     and every call of the 10th lockstep SCvx iteration, whose warm IPM ends
-     near optimality where conditioning is worst; replan path: the first IPM
+     and every call of the 10th lockstep SCvx iteration, every third of
+     tridiag_solve, whose warm IPM ends near optimality where conditioning
+     is worst; replan path: the first IPM
      iteration of the cold solve and every call of the last replan
-     iteration), in float32 and float64: the kernel must be finite wherever
-     success in its dtype is guaranteed, and there its residuals within
-     their backward-error bounds and its error against the float64 plain
-     version within the forward error those bounds permit (``check_call``);
-     the discretize kernel against its plain version on the main path's
-     first and 10th lockstep calls, the last call of each replan run and a
-     synthetic call with drag and a NaN lane, each gated per lane and output
-     (``check_disc``), with the gap between the kernel's x_prop and the
-     plain ``propagate``'s printed; the wrappers must refuse what the
-     kernels do not take;
+     iteration; penalized path: chol, cho_solve and tridiag_factor, and
+     point-mass path: the fused route's three kernels, both as the main
+     path's kernels; chol and cho_solve block by block;
+     fused_chol_solve on synthetic SPD batches at the vehicle's shape and at
+     the penalized path's stage-Hessian shape), in float32 and float64: the
+     kernel must be finite wherever success in its dtype is guaranteed, and
+     there its residuals within their backward-error bounds and its error
+     against the float64 plain version within the forward error those
+     bounds permit (``check_call``); the discretize kernel against its plain
+     version on the main path's first and 10th lockstep calls, the last call
+     of each replan run, a synthetic call with drag and a NaN lane, and the
+     point-mass path's first and 10th calls and a NaN lane, each gated per
+     lane and output (``check_disc``), with the gap between the kernel's
+     x_prop and the plain ``propagate``'s printed; the wrappers must refuse
+     what the kernels do not take;
   4. f64 on the card beside the same runs on the CPU with the plain
      versions (child processes, Ruiz on every solve): B=4 of the main path
-     at K=50, and the replan path at K=50 with the static KKT
-     regularization at 1e-6 (``REPLAN_CHECK_REG`` says why); sigma within
-     1e-6 relative, identical iteration counts and converged flags;
+     and of the penalized path at K=50, B=4 of the point-mass path at K=30,
+     and the replan path at K=50 with the static KKT regularization at 1e-6
+     (``REPLAN_CHECK_REG`` says why); sigma (X and U for the fixed-time
+     point mass) within 1e-6 relative, identical iteration counts and
+     converged flags; and, as a reading, the penalized case again on the
+     card with tridiag_factor's plain version (a child process beside the
+     card runs), to show how far a change of summation order alone moves
+     sigma;
   5. each kernel's time at its path's shapes beside its bound, its plain
      version's time and, where one exists, one PyTorch library call's time
-     (chol and cho_solve also at a B=256 batch of blocks, for the record);
-     and the synchronized wall of one ``discretize`` call at B=256 with the
-     kernel against the same call with the plain version, median of 5.
+     (chol and cho_solve also at a B=256 batch of blocks, for the record;
+     fused_chol_solve at both of its phase-3 shapes); and the synchronized
+     wall of one ``discretize`` call at B=256 with the kernel against the
+     same call with the plain version, median of 5.
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict ``{"ok": true, "device": {...}}``; the total wall is printed
 before them. Any failed phase exits
-non-zero without that line. ``--cpu-reference PATH`` and ``--cpu-replan
-PATH`` are the child modes of phase 4 (CPU only).
+non-zero without that line. ``--cpu-reference PATH CASE`` (CASE: main,
+penalized or pointmass) and ``--cpu-replan PATH`` (CPU only) and
+``--card-plain-factor PATH`` are the child modes of phase 4.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -91,6 +122,12 @@ BENCH_REPLAN_ITERS = 40         # bench.py's replan loop
 # f64 PCR gives the scan route's trajectory (ROADMAP Queue 3;
 # scripts/replan_diagnostic.py takes these readings).
 REPLAN_CHECK_REG = 1e-6
+# w_dir_penalty of the penalized path: the weight of the quadratic penalty on
+# throttle moves: the largest power of ten from 1.0 down at which the f64
+# nominal solve converges within the cap in both packages (PERF.md section 6)
+PENALTY_W = 0.1
+PM_K = 30                       # BASELINE config 1: point mass, K=30
+VEHICLE = (300, 13, 2)          # tests/test_pallas_kkt.py:28, N, n, m
 
 KERNELS = {
     "fused_factor": dict(
@@ -111,25 +148,43 @@ KERNELS = {
     "discretize_lanes": dict(
         source="successiveconvexification_tpu_torch/csrc/disc.cu",
         replaces="successiveconvexification_tpu/ops/pallas_disc.py:144"),
+    "tridiag_factor": dict(
+        source="successiveconvexification_tpu_torch/csrc/kkt.cu",
+        replaces="successiveconvexification_tpu/ops/pallas_kkt.py:404"),
+    "fused_chol_solve": dict(
+        source="successiveconvexification_tpu_torch/csrc/kkt.cu",
+        replaces="successiveconvexification_tpu/ops/pallas_kkt.py:512"),
 }
+# the discretize kernel's point-mass instantiation, recorded as its own row
+PM_DISC = "discretize_lanes[pointmass3dof]"
+KERNELS[PM_DISC] = KERNELS["discretize_lanes"]
+WRAPPED = ("fused_factor", "tridiag_solve", "cho_solve_vec", "chol",
+           "cho_solve", "tridiag_factor", "fused_chol_solve", "discretize_lanes")
+
+
+def _counts(**nonzero) -> dict:
+    return {k: nonzero.get(k, 0) for k in WRAPPED}
+
+
 # launches per IPM iteration and per cold init (ipm.py structure). An IPM
 # iteration factors once and runs three KKT solves (predictor, corrector,
 # one refinement), each with two stage-Hessian solves; a cold init factors
 # once and runs two KKT solves. The fused route adds a tridiag_solve per
-# KKT solve and one for the Sherman-Morrison vector; the PCR route factors
-# H with chol and forms H^-1 E', H^-1 F' with two cho_solve launches.
-# Every SCvx iteration discretizes once (PER_SCVX), and so does the
+# KKT solve and one for the Sherman-Morrison vector; the unfused routes
+# factor H with chol and form H^-1 E', H^-1 F' with two cho_solve
+# launches, then the Schur system: by PCR (plain, the replan path) or by
+# tridiag_factor with the fused route's tridiag_solves (the penalized
+# path). Every SCvx iteration discretizes once (PER_SCVX), and so does the
 # replan's warm start.
-PER_ITER = {"fused_factor": 1, "tridiag_solve": 4, "cho_solve_vec": 6,
-            "chol": 0, "cho_solve": 0, "discretize_lanes": 0}
-PER_COLD = {"fused_factor": 1, "tridiag_solve": 3, "cho_solve_vec": 4,
-            "chol": 0, "cho_solve": 0, "discretize_lanes": 0}
-REPLAN_PER_ITER = {"fused_factor": 0, "tridiag_solve": 0, "cho_solve_vec": 6,
-                   "chol": 1, "cho_solve": 2, "discretize_lanes": 0}
-REPLAN_PER_COLD = {"fused_factor": 0, "tridiag_solve": 0, "cho_solve_vec": 4,
-                   "chol": 1, "cho_solve": 2, "discretize_lanes": 0}
-PER_SCVX = {"fused_factor": 0, "tridiag_solve": 0, "cho_solve_vec": 0,
-            "chol": 0, "cho_solve": 0, "discretize_lanes": 1}
+PER_ITER = _counts(fused_factor=1, tridiag_solve=4, cho_solve_vec=6)
+PER_COLD = _counts(fused_factor=1, tridiag_solve=3, cho_solve_vec=4)
+REPLAN_PER_ITER = _counts(cho_solve_vec=6, chol=1, cho_solve=2)
+REPLAN_PER_COLD = _counts(cho_solve_vec=4, chol=1, cho_solve=2)
+PENALIZED_PER_ITER = _counts(chol=1, cho_solve=2, tridiag_factor=1,
+                             tridiag_solve=4, cho_solve_vec=6)
+PENALIZED_PER_COLD = _counts(chol=1, cho_solve=2, tridiag_factor=1,
+                             tridiag_solve=3, cho_solve_vec=4)
+PER_SCVX = _counts(discretize_lanes=1)
 LATE_LOCKSTEP = 10
 
 
@@ -147,7 +202,10 @@ def _import_port():
 
 
 def _configs(P, dtype: str, K: int, substeps: int, bench: bool,
-             kkt: str = "scan", static_reg: float = 1e-8):
+             kkt: str = "scan", static_reg: float = 1e-8,
+             free_final_time: bool = True, **scvx):
+    """The solver settings of a path: bench.py's (``bench``) or the f64
+    card-vs-CPU check's; ``scvx`` overrides ScvxConfig fields."""
     if bench:
         ipm = P.IPMConfig(max_iters=15, refine_steps=1, warm_start=True,
                           use_pallas=True, kkt_solver=kkt,
@@ -161,17 +219,58 @@ def _configs(P, dtype: str, K: int, substeps: int, bench: bool,
                           static_reg=static_reg)
     return P.SolverConfig(
         dtype=dtype, disc=P.DiscretizationConfig(K=K, substeps=substeps),
-        ipm=ipm, scvx=dataclasses.replace(P.ScvxConfig(), max_iters=120))
+        ipm=ipm, scvx=dataclasses.replace(P.ScvxConfig(), max_iters=120,
+                                          **scvx),
+        free_final_time=free_final_time)
 
 
-def _dispersed(P, B: int, dtype, device):
+def _dispersed(P, B: int, dtype, device, pointmass: bool = False):
+    """B dispersions of the model's default scenario with the main path's
+    stds, drawn from a torch.Generator seeded with 0."""
     import torch
+    from successiveconvexification_tpu_torch.models import pointmass3dof as pm
     from successiveconvexification_tpu_torch.models import rocket6dof as rk
 
-    params = rk.default_params(dtype=dtype, device=device)
+    params = (pm if pointmass else rk).default_params(dtype=dtype, device=device)
     gen = torch.Generator(device="cpu").manual_seed(0)
     return P.sample_dispersions(params, gen, B, r_std=0.2, v_std=0.1,
                                 m_frac_std=0.03)
+
+
+def _throttle_dirs(params, xk, uk):
+    """One penalized direction a node: the unit thrust direction (0_nx,
+    u/|u|), a soft limit on throttle moves between iterates."""
+    import torch
+    from successiveconvexification_tpu_torch.models.base import safe_norm
+
+    n = uk / safe_norm(uk)[..., None]
+    return torch.cat([torch.zeros_like(xk), n], dim=-1)[..., None, :]
+
+
+def penalized_model(P):
+    """The rocket with the throttle direction penalized: its subproblems
+    have rank-one quadratic rows (Q_r1)."""
+    return dataclasses.replace(P.rocket6dof_model(), name="rocket6dof_throttle",
+                               penalized_dirs=_throttle_dirs)
+
+
+def reference_case(P, case: str, device: str):
+    """(model, params batch, cfg) of the f64 card-vs-CPU check ``case``:
+    B=4 of the main path, of the penalized path or of the point-mass path."""
+    import torch
+
+    if case == "pointmass":
+        cfg = _configs(P, "float64", PM_K, MAIN_SUBSTEPS, bench=False,
+                       free_final_time=False, w_sigma=0.0, w_mass=1.0)
+        return (P.pointmass3dof_model(),
+                _dispersed(P, REF_B, torch.float64, device, pointmass=True), cfg)
+    pb = _dispersed(P, REF_B, torch.float64, device)
+    if case == "penalized":
+        cfg = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False,
+                       w_dir_penalty=PENALTY_W)
+        return penalized_model(P), pb, cfg
+    return P.rocket6dof_model(), pb, _configs(P, "float64", MAIN_K,
+                                              MAIN_SUBSTEPS, bench=False)
 
 
 def replan(P, model, cfg, device: str, cap: int, before=None, after=None,
@@ -315,21 +414,46 @@ def cpu_replan(path: str) -> None:
         json.dump(out, f)
 
 
-def cpu_reference(path: str) -> None:
-    """Child mode: the f64 B=4 K=50 run on the CPU with the plain versions."""
+def cpu_reference(path: str, case: str) -> None:
+    """Child mode: the f64 B=4 run of ``case`` on the CPU with the plain
+    versions."""
     import torch
 
-    torch.set_num_threads(4)
+    torch.set_num_threads({"main": 3, "penalized": 2, "pointmass": 1}[case])
     P, *_ = _import_port()
-    cfg = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False)
-    pb = _dispersed(P, REF_B, torch.float64, "cpu")
+    model, pb, cfg = reference_case(P, case, "cpu")
     t0 = time.perf_counter()
-    st = P.solve_batch(P.rocket6dof_model(), pb, cfg, device="cpu")
-    out = {"sigma": st.sigma.tolist(), "iterations": st.iterations.tolist(),
-           "converged": st.converged.tolist(),
-           "seconds": time.perf_counter() - t0}
+    st = P.solve_batch(model, pb, cfg, device="cpu")
+    out = {**_reference_summary(st), "seconds": time.perf_counter() - t0}
     with open(path, "w") as f:
         json.dump(out, f)
+
+
+def card_plain_factor(path: str) -> None:
+    """Child mode: the f64 B=4 penalized case on the card with
+    tridiag_factor's plain version in place of its kernel, to read how far
+    a change of summation order alone moves sigma."""
+    import torch
+
+    torch.set_num_threads(1)
+    P, _, _, cuda_kkt, _ = _import_port()
+    from successiveconvexification_tpu_torch.ops import precision
+
+    precision.full_precision()
+    cuda_kkt.tridiag_factor = cuda_kkt.tridiag_factor_plain
+    model, pb, cfg = reference_case(P, "penalized", "cuda")
+    t0 = time.perf_counter()
+    st = P.solve_batch(model, pb, cfg, device="cuda")
+    torch.cuda.synchronize()
+    out = {**_reference_summary(st), "seconds": time.perf_counter() - t0}
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def _reference_summary(st) -> dict:
+    return {"sigma": st.sigma.tolist(), "iterations": st.iterations.tolist(),
+            "converged": st.converged.tolist(), "X": st.X.tolist(),
+            "U": st.U.tolist()}
 
 
 # ---------------------------------------------------------------- helpers
@@ -712,16 +836,120 @@ def _guaranteed_solve(args, ref, dtype):
     return _lane_finite([a for a in args if a.is_floating_point()]) & _lane_finite(ref)
 
 
+# tridiag_factor: the block Cholesky of M (D_k on the diagonal, O_k above
+# it) satisfies L_k L_k' + C_k' C_k = D_k and L_{k-1} C_k = O_{k-1}. Each
+# entry of the first sums n terms of C'C, the subtraction from D and n + 1
+# of the Cholesky step: N_t = 2n + 2 covers both relations. The residuals
+# are taken against the kernel's own L and C; the forward bound is the
+# block Cholesky perturbation of the dense factor, as for the fused factor.
+def _trifac_den(args, L, C):
+    """Absolute-term scales of the two relations."""
+    D, O = (t.double() for t in args)
+    return (L.abs() @ _T(L.abs()) + _T(C.abs()) @ C.abs() + D.abs(),
+            L[:, :-1].abs() @ C[:, 1:].abs() + O.abs())
+
+
+def _backward_trifac(args, outs):
+    import torch
+
+    D, O = (t.double() for t in args)
+    L, C = (t.double() for t in outs)
+    den_d, den_o = _trifac_den(args, L, C)
+    om = _omega(torch.tril(L @ _T(L) + _T(C) @ C - D), den_d)
+    if O.shape[1] > 0:
+        om = torch.maximum(om, _omega(L[:, :-1] @ C[:, 1:] - O, den_o))
+    return {"factor": (om, 2 * D.shape[-1] + 2)}
+
+
+def _forward_trifac(args, ref, outs, dtype):
+    import torch
+
+    L_r, C_r = (t.double() for t in ref)
+    L, C = (t.double() for t in outs)
+    B, N, n, _ = L_r.shape
+    den_d, den_o = _trifac_den(args, L_r, C_r)
+    tol = _chol_forward(_dense(L_r, _T(C_r[:, 1:]), sym=False),
+                        _both(2 * n + 2, dtype)
+                        * _dense(den_d, _T(den_o), sym=True))
+    tol_L, tol_Ct = _blocks(tol, N, n)
+    tol_C = torch.cat([torch.zeros_like(tol_L[:, :1]), _T(tol_Ct)], 1)
+    return torch.maximum(_omega(L - L_r, tol_L), _omega(C - C_r, tol_C))
+
+
+def _guaranteed_trifac(args, ref, dtype):
+    """(B,) the whole system stays positive definite, with room for the
+    forward bound, under every perturbation within the backward bound."""
+    from successiveconvexification_tpu_torch.ops import smallla
+
+    D, O = (t.double() for t in args)
+    L, C = (t.double() for t in ref)
+    n = D.shape[-1]
+    den_d, den_o = _trifac_den(args, L, C)
+    rows = den_d.sum(-1)
+    rows[:, :-1] += den_o.sum(-1)
+    rows[:, 1:] += den_o.sum(-2)
+    shift = 2 * _gamma(2 * n + 2, dtype) * rows.amax((1, 2))
+    Ls, _ = smallla.blocktridiag_factor(
+        D - shift[:, None, None, None] * _eye(n, D), O)
+    return _lane_finite((Ls,))
+
+
+# fused_chol_solve: Cholesky then two triangular solves, backward stable as
+# a whole (Higham Thm 10.4): (A + dA) x = b with |dA| <= gamma_{3n+1}
+# |L| |L'|, and for SPD A, (|L| |L'|)_ij <= sqrt(a_ii a_jj) (Cauchy-Schwarz
+# on L's rows), so the residual's scale comes from A's diagonal alone.
+def _fcs_den(args, x):
+    A, b = (t.double() for t in args)
+    x = x.double()
+    d = A.diagonal(0, -2, -1).clamp(min=0).sqrt()
+    return A @ x - b, (d[..., :, None] * d[..., None, :]) @ x.abs() + b.abs()
+
+
+def _backward_fcs(args, outs):
+    res, den = _fcs_den(args, outs[0])
+    return {"solve": (_omega(res, den), 3 * args[0].shape[-1] + 2)}
+
+
+def _forward_fcs(args, ref, outs, dtype):
+    import torch
+
+    from successiveconvexification_tpu_torch.ops import smallla
+
+    A = args[0].double()
+    n_t = 3 * A.shape[-1] + 2
+    Ainv = torch.cholesky_inverse(smallla.chol(A)).abs()
+    tol = Ainv @ (_gamma(n_t, dtype) * _fcs_den(args, outs[0])[1]
+                  + _gamma(n_t, torch.float64) * _fcs_den(args, ref[0])[1])
+    return _omega(outs[0].double() - ref[0].double(), tol)
+
+
+def _guaranteed_fcs(args, ref, dtype):
+    """(N,) A stays positive definite under every perturbation within the
+    backward bound, and inputs and reference are finite."""
+    from successiveconvexification_tpu_torch.ops import smallla
+
+    A = args[0].double()
+    n = A.shape[-1]
+    d = A.diagonal(0, -2, -1).clamp(min=0).sqrt()
+    shift = 2 * _gamma(3 * n + 2, dtype) * (d * d.sum(-1, keepdim=True)).amax(-1)
+    ok = _lane_finite((smallla.chol(A - shift[..., None, None] * _eye(n, A)),))
+    return ok & _guaranteed_solve(args, ref, dtype)
+
+
 BACKWARD = {"fused_factor": _backward_fused, "tridiag_solve": _backward_tridiag,
             "cho_solve_vec": _backward_cho, "chol": _backward_chol,
-            "cho_solve": _backward_cho}
+            "cho_solve": _backward_cho, "tridiag_factor": _backward_trifac,
+            "fused_chol_solve": _backward_fcs}
 FORWARD = {"fused_factor": _forward_fused, "tridiag_solve": _forward_tridiag,
            "cho_solve_vec": _forward_cho, "chol": _forward_chol,
-           "cho_solve": _forward_cho}
+           "cho_solve": _forward_cho, "tridiag_factor": _forward_trifac,
+           "fused_chol_solve": _forward_fcs}
 GUARANTEED = {"fused_factor": _guaranteed_fused,
               "tridiag_solve": _guaranteed_solve,
               "cho_solve_vec": _guaranteed_solve, "chol": _guaranteed_chol,
-              "cho_solve": _guaranteed_solve}
+              "cho_solve": _guaranteed_solve,
+              "tridiag_factor": _guaranteed_trifac,
+              "fused_chol_solve": _guaranteed_fcs}
 
 
 def check_call(name, args, kernel, plain):
@@ -881,24 +1109,26 @@ def _work(name: str, args, esize: int):
     every input read once, every output written once. ``chol`` reads only
     the lower triangle of each A block and the solves only that of each L
     block, so only it counts."""
-    if name == "discretize_lanes":
+    if name in ("discretize_lanes", PM_DISC):
+        from successiveconvexification_tpu_torch.ops import cuda_disc
+
         model, params, X, U, sigma, substeps, foh = args
+        f_val, f_tan = DYNAMICS_FLOPS[cuda_disc.kernel_dynamics(model)]
         nx, nu = model.nx, model.nu
         K = X.shape[-2]
         n_sc = X.numel() // (K * nx)             # scenarios: sigma, params
         n_lanes = n_sc * (K - 1)
-        n_p = model.cuda_params(params).shape[-1]
+        n_p = model.cuda_dynamics.pack(params).shape[-1]
         elems = (X.numel() + U.numel() + n_sc * (1 + n_p)
                  + n_lanes * (nx * nx + 2 * nx * nu + 3 * nx))
-        # per RK stage (csrc/disc.cu): the rocket dynamics' value once (133
-        # flops) and their 17 tangents (241 flops each; both counted from
-        # the source on dual numbers, sign flips free), sigma scaling of
+        # per RK stage (csrc/disc.cu): the dynamics' value once and their
+        # nx + nu tangents (DYNAMICS_FLOPS), sigma scaling of
         # [A | B], w = sA x + sB u, sA Phi, P sA, P sB, P f, P w, the lam
         # scalings, sigma f, u(tau), and the RK4 bookkeeping (13 flops a
         # carry value per step: 518 values); then Phi Bm, Phi Bp, Phi S,
         # Phi z once
         n_aug = nx + 2 * nx * nx + 2 * nx * nu + 2 * nx
-        stage = (133 + (nx + nu) * 241 + nx * (nx + nu) + 2 * nx * (nx + nu)
+        stage = (f_val + (nx + nu) * f_tan + nx * (nx + nu) + 2 * nx * (nx + nu)
                  + 2 * (2 * nx ** 3) + 2 * nx * nx * nu + 2 * (2 * nx * nx)
                  + 2 * nx * nu + nx + 3 * nu + 13 / 4 * n_aug)
         final = 2 * (2 * nx * nx * nu) + 2 * (2 * nx * nx)
@@ -918,6 +1148,21 @@ def _work(name: str, args, esize: int):
                      + nrx ** 3 / 3)
         flops = B * (K * per_node + (K - 1) * per_block)
         return elems * esize + rng.numel() * 4, flops
+    if name == "tridiag_factor":   # reads D's lower triangle and O
+        D, O = args
+        B, N, n, _ = D.shape
+        low = n * (n + 1) // 2
+        elems = B * N * low + O.numel() + 2 * D.numel()
+        # C_k: n forward substitutions of n^2 flops; S_k's lower triangle:
+        # 2n a entry; chol n^3 / 3
+        flops = B * ((N - 1) * n ** 3 + N * (2 * n * low + n ** 3 / 3))
+        return elems * esize, flops
+    if name == "fused_chol_solve":  # A's lower triangle, B, X
+        A, b = args
+        n, m = A.shape[-1], b.shape[-1]
+        N = A.numel() // (n * n)
+        return ((N * n * (n + 1) // 2 + 2 * b.numel()) * esize,
+                N * (n ** 3 / 3 + 2 * n * n * m))
     if name == "tridiag_solve":
         L, C, r = args
         B, N, n, _ = L.shape
@@ -932,6 +1177,12 @@ def _work(name: str, args, esize: int):
     n = L.shape[-1]
     N = L.numel() // (n * n)
     return (N * n * (n + 1) // 2 + 2 * b.numel()) * esize, 2 * n * b.numel()
+
+
+# flops of one evaluation of each model's dynamics in csrc/disc.cu, counted
+# from the source on dual numbers (sign flips free): the value once, and
+# each tangent direction's derivative part
+DYNAMICS_FLOPS = {"rocket6dof": (133, 241), "pointmass3dof": (14, 23)}
 
 
 def _time_kernel(name, args, kernel, plain, library):
@@ -988,6 +1239,92 @@ def profile_iteration(P, model, cfg, r) -> dict:
             "aten_calls": sum(e.count for e in ops)}
 
 
+def run_sweep(P, batch_mod, label, model, cfg, pb, wrappers, caps, per_iter,
+              per_cold, card):
+    """Drive a sweep the way the main path runs (``solve_batch_compact_device``
+    with chunk 10 and min bucket 32) on the card, with every launch counter
+    set to 0 just before and read just after; print its line and launches,
+    and fail unless the trajectories are finite and well shaped, at least
+    half the lanes converge, the path's kernels launched, and every count
+    matches the IPM's structure (``per_iter``/``per_cold`` and one
+    discretize a lockstep SCvx iteration). ``caps`` keep each kernel's
+    chosen first call and every call of lockstep iteration LATE_LOCKSTEP
+    (or of the last one, if the sweep ends before it)."""
+    import torch
+
+    counts = {"lockstep": 0, "cold": 0}
+    orig_iter = batch_mod.scvx_iteration
+
+    def counting_iteration(model_, params_, cfg_, st_, assume_warm_valid=False):
+        counts["lockstep"] += 1
+        counts["cold"] += 0 if assume_warm_valid else 1
+        if counts["lockstep"] == LATE_LOCKSTEP:
+            for c in caps.values():
+                c.recent.clear()
+        out_ = orig_iter(model_, params_, cfg_, st_,
+                         assume_warm_valid=assume_warm_valid)
+        if counts["lockstep"] == LATE_LOCKSTEP:
+            for c in caps.values():
+                c.late = list(c.recent)
+        return out_
+
+    batch_mod.scvx_iteration = counting_iteration
+    try:
+        with contextlib.ExitStack() as stack:
+            for c in caps.values():
+                stack.enter_context(c)
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = P.solve_batch_compact_device(model, pb, cfg, chunk=10,
+                                               min_bucket=32, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: w.launches for k, w in wrappers.items()}
+    finally:
+        batch_mod.scvx_iteration = orig_iter
+
+    for c in caps.values():
+        c.late = list(c.recent) if c.late is None else c.late
+    B, K = pb.batch_shape[0], cfg.disc.K
+    finite = all(bool(torch.isfinite(t).all()) for t in (out.X, out.U, out.sigma))
+    shapes = (tuple(out.X.shape) == (B, K, model.nx)
+              and tuple(out.U.shape) == (B, K, model.nu))
+    n_conv = int(out.converged.sum())
+    its = sorted(out.iterations.tolist())
+    pct = lambda q: its[min(len(its) - 1, int(math.ceil(q * len(its))) - 1)]  # noqa: E731
+    feas = (out.defect_nl + out.viol_nl)[out.converged]
+    ms_iter = 1e3 * wall / max(counts["lockstep"], 1)
+    print(f"{label}: B={B} K={K} substeps={cfg.disc.substeps} {cfg.dtype}: "
+          f"{n_conv}/{B} converged, iterations p50 {pct(0.5)} p90 "
+          f"{pct(0.9)} max {its[-1]}, wall {wall:.3f} s, "
+          f"{counts['lockstep']} lockstep SCvx iterations "
+          f"({counts['cold']} with a cold init), {ms_iter:.2f} ms per "
+          f"SCvx iteration, sigma mean {float(out.sigma.mean()):.4f}, "
+          f"max converged defect+violation {float(feas.max()) if n_conv else float('nan'):.3e}")
+    print(f"{label} launches: {json.dumps(launches)}")
+    # the kernel that launches once per factorization counts IPM iterations
+    anchor = next(k for k in WRAPPED if per_iter[k] == 1 and per_cold[k] == 1)
+    n_body = launches[anchor] - counts["cold"]
+    expect = {k: per_iter[k] * n_body + per_cold[k] * counts["cold"]
+              + PER_SCVX[k] * counts["lockstep"] for k in launches}
+    print(f"  expected from {n_body} IPM iterations + {counts['cold']} cold "
+          f"inits + {counts['lockstep']} SCvx iterations: "
+          f"{json.dumps(expect)}")
+    if not (finite and shapes):
+        raise PhaseError(f"{label}: non-finite or misshapen trajectories")
+    if n_conv < B // 2:
+        raise PhaseError(f"{label}: only {n_conv}/{B} lanes converged")
+    path_kernels = [k for k in launches if per_iter[k] or PER_SCVX[k]]
+    if any(launches[k] == 0 for k in path_kernels):
+        raise PhaseError(f"{label}: a kernel never launched: {launches}")
+    if launches != expect:
+        raise PhaseError(f"{label}: launch counts do not match the IPM")
+    return out, launches, dict(counts, wall=wall, ms_iter=ms_iter,
+                               p50=pct(0.5), p90=pct(0.9), max=its[-1])
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     try:
@@ -1024,8 +1361,11 @@ def main() -> int:
     precision.full_precision()
     t_start = time.perf_counter()
     children = []
-    ref_path = os.path.join(ROOT, "build", "chip_smoke_cpu_reference.json")
+    ref_paths = {case: os.path.join(ROOT, "build",
+                                    f"chip_smoke_cpu_reference_{case}.json")
+                 for case in ("main", "penalized", "pointmass")}
     replan_path = os.path.join(ROOT, "build", "chip_smoke_cpu_replan.json")
+    plain_path = os.path.join(ROOT, "build", "chip_smoke_card_plain_factor.json")
     try:
         # ---- 1. card and build ------------------------------------------------
         card = _card_line()
@@ -1041,32 +1381,20 @@ def main() -> int:
             log = os.path.join(_build.BUILD, f"{src}.log")
             if os.path.exists(log):
                 for line in open(log):
-                    if "registers" in line or "spill" in line:
+                    if ("registers" in line or "spill" in line
+                            or "entry function" in line):
                         print(f"  ptxas {src}: {line.strip()}")
 
         # ---- 2. the main path ----------------------------------------------
         model = P.rocket6dof_model()
         cfg = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True)
         pb = _dispersed(P, MAIN_B, torch.float32, "cuda")
-        counts = {"lockstep": 0, "cold": 0}
-        orig_iter = batch_mod.scvx_iteration
-
-        def counting_iteration(model_, params_, cfg_, st_, assume_warm_valid=False):
-            counts["lockstep"] += 1
-            counts["cold"] += 0 if assume_warm_valid else 1
-            if counts["lockstep"] == LATE_LOCKSTEP:
-                for c in caps.values():
-                    c.recent.clear()
-            out_ = orig_iter(model_, params_, cfg_, st_,
-                             assume_warm_valid=assume_warm_valid)
-            if counts["lockstep"] == LATE_LOCKSTEP:
-                for c in caps.values():
-                    c.late = list(c.recent)
-            return out_
-
         wrappers = {"fused_factor": cuda_fused.fused_factor,
                     "tridiag_solve": cuda_kkt.tridiag_solve,
                     "cho_solve_vec": cuda_kkt.cho_solve_vec,
+                    "chol": cuda_kkt.chol, "cho_solve": cuda_kkt.cho_solve,
+                    "tridiag_factor": cuda_kkt.tridiag_factor,
+                    "fused_chol_solve": cuda_kkt.fused_chol_solve,
                     "discretize_lanes": cuda_disc.discretize_lanes}
         caps = {
             "fused_factor": Capture(cuda_fused, "fused_factor",
@@ -1078,57 +1406,10 @@ def main() -> int:
             # the first lockstep iteration's call
             "discretize_lanes": Capture(cuda_disc, "discretize_lanes", 0),
         }
-        batch_mod.scvx_iteration = counting_iteration
-        try:
-            with caps["fused_factor"], caps["tridiag_solve"], \
-                    caps["cho_solve_vec"], caps["discretize_lanes"]:
-                for w in wrappers.values():
-                    w.launches = 0
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = P.solve_batch_compact_device(model, pb, cfg, chunk=10,
-                                                   min_bucket=32, device="cuda")
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                launches = {k: w.launches for k, w in wrappers.items()}
-        finally:
-            batch_mod.scvx_iteration = orig_iter
-
-        for c in caps.values():
-            c.late = list(c.recent) if c.late is None else c.late
-        finite = all(bool(torch.isfinite(t).all()) for t in (out.X, out.U, out.sigma))
-        shapes = (tuple(out.X.shape) == (MAIN_B, MAIN_K, 14)
-                  and tuple(out.U.shape) == (MAIN_B, MAIN_K, 3))
-        n_conv = int(out.converged.sum())
-        its = sorted(out.iterations.tolist())
-        pct = lambda q: its[min(len(its) - 1, int(math.ceil(q * len(its))) - 1)]  # noqa: E731
-        feas = (out.defect_nl + out.viol_nl)[out.converged]
-        ms_iter = 1e3 * wall / max(counts["lockstep"], 1)
-        print(f"main path: B={MAIN_B} K={MAIN_K} substeps={MAIN_SUBSTEPS} float32: "
-              f"{n_conv}/{MAIN_B} converged, iterations p50 {pct(0.5)} p90 "
-              f"{pct(0.9)} max {its[-1]}, wall {wall:.3f} s, "
-              f"{counts['lockstep']} lockstep SCvx iterations "
-              f"({counts['cold']} with a cold init), {ms_iter:.2f} ms per "
-              f"SCvx iteration, sigma mean {float(out.sigma.mean()):.4f}, "
-              f"max converged defect+violation {float(feas.max()) if n_conv else float('nan'):.3e}")
-        print(f"main path launches: {json.dumps(launches)}")
-        n_body = launches["fused_factor"] - counts["cold"]
-        expect = {k: PER_ITER[k] * n_body + PER_COLD[k] * counts["cold"]
-                  + PER_SCVX[k] * counts["lockstep"] for k in launches}
-        print(f"  expected from {n_body} IPM iterations + {counts['cold']} cold "
-              f"inits + {counts['lockstep']} SCvx iterations: "
-              f"{json.dumps(expect)}")
-        if not (finite and shapes):
-            raise PhaseError("main path: non-finite or misshapen trajectories")
-        if n_conv < MAIN_B // 2:
-            raise PhaseError(f"main path: only {n_conv}/{MAIN_B} lanes converged")
-        if any(v == 0 for v in launches.values()):
-            raise PhaseError(f"main path: a kernel never launched: {launches}")
-        if launches != expect:
-            raise PhaseError("main path: launch counts do not match the IPM")
+        out, launches, _ = run_sweep(P, batch_mod, "main path", model, cfg, pb,
+                                     wrappers, caps, PER_ITER, PER_COLD, card)
 
         # ---- 2b. the replan path ---------------------------------------------
-        wrappers.update(chol=cuda_kkt.chol, cho_solve=cuda_kkt.cho_solve)
         rcaps = {"chol": Capture(cuda_kkt, "chol", REPLAN_PER_COLD["chol"]),
                  "cho_solve": Capture(cuda_kkt, "cho_solve",
                                       REPLAN_PER_COLD["cho_solve"])}
@@ -1166,24 +1447,93 @@ def main() -> int:
                   "iterations (ROADMAP Queue 3: its PCR solves end "
                   "uncertified and the summation order decides the path)")
 
+        # ---- 2c. the penalized path ------------------------------------------
+        # the main path's dispersions and settings, the throttle direction
+        # penalized: the scan route factors without the fused kernel
+        pmodel = penalized_model(P)
+        cfg_p = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True,
+                         w_dir_penalty=PENALTY_W)
+        pcaps = {name: Capture(cuda_kkt, name, PENALIZED_PER_COLD[name])
+                 for name in ("chol", "cho_solve", "tridiag_factor")}
+        print(f"penalized path: {pmodel.name}, one penalized direction a node "
+              f"(the unit thrust direction), w_dir_penalty {PENALTY_W:g}")
+        outp, plaunches, _ = run_sweep(
+            P, batch_mod, "penalized path", pmodel, cfg_p, pb, wrappers, pcaps,
+            PENALIZED_PER_ITER, PENALIZED_PER_COLD, card)
+        both = outp.converged & out.converged
+        gap = ((outp.sigma - out.sigma).abs() / out.sigma.abs())[both]
+        gs = sorted(gap.tolist())
+        print(f"  penalized vs main path, lanes both converged ({len(gs)}): "
+              f"sigma relative gap p50 "
+              f"{gs[len(gs) // 2] if gs else float('nan'):.3e} max "
+              f"{gs[-1] if gs else float('nan'):.3e} (a reading, not a gate)")
+
+        # ---- 2d. the point-mass path -----------------------------------------
+        # BASELINE config 1: K=30, fixed final time, maximum final mass
+        pm_model = P.pointmass3dof_model()
+        cfg_pm = _configs(P, "float32", PM_K, MAIN_SUBSTEPS, bench=True,
+                          free_final_time=False, w_sigma=0.0, w_mass=1.0)
+        pb_pm = _dispersed(P, MAIN_B, torch.float32, "cuda", pointmass=True)
+        # tridiag_solve: the first KKT solve, not the Sherman-Morrison solve
+        # before it, whose right-hand side g_sig is 0 at a fixed final time
+        mcaps = {
+            "fused_factor": Capture(cuda_fused, "fused_factor",
+                                    PER_COLD["fused_factor"]),
+            "tridiag_solve": Capture(cuda_kkt, "tridiag_solve",
+                                     PER_COLD["tridiag_solve"] + 1),
+            "cho_solve_vec": Capture(cuda_kkt, "cho_solve_vec",
+                                     PER_COLD["cho_solve_vec"]),
+            "discretize_lanes": Capture(cuda_disc, "discretize_lanes", 0)}
+        outm, mlaunches, _ = run_sweep(
+            P, batch_mod, "point-mass path", pm_model, cfg_pm, pb_pm, wrappers,
+            mcaps, PER_ITER, PER_COLD, card)
+        if not bool((outm.sigma == pb_pm.tf_guess).all()):
+            raise PhaseError("point-mass path: the fixed final time moved")
+
+        # ---- 2e. fused_chol_solve on its JAX test vehicle ---------------------
+        gen = torch.Generator(device="cpu").manual_seed(1)
+        N6, n6, m6 = VEHICLE
+        R6 = torch.randn(N6, n6, n6, generator=gen, dtype=torch.float64)
+        A6 = (R6 @ _T(R6) + 5 * torch.eye(n6, dtype=torch.float64)).cuda()
+        B6 = torch.randn(N6, n6, m6, generator=gen, dtype=torch.float64).cuda()
+        for w in wrappers.values():
+            w.launches = 0
+        X6 = cuda_kkt.fused_chol_solve(A6, B6)
+        torch.cuda.synchronize()
+        vlaunches = {k: w.launches for k, w in wrappers.items()}
+        ref6 = torch.linalg.solve(A6, B6)
+        err6 = float((X6 - ref6).abs().max())
+        ok6 = bool(torch.allclose(X6, ref6, rtol=1e-8, atol=1e-9))
+        print(f"fused_chol_solve vehicle (tests/test_pallas_kkt.py:28): N={N6} "
+              f"n={n6} m={m6} float64 against torch.linalg.solve: max abs err "
+              f"{err6:.3e} (rtol 1e-8, atol 1e-9) -> {'ok' if ok6 else 'FAIL'}; "
+              f"launches {json.dumps(vlaunches)}")
+        if not ok6 or vlaunches != _counts(fused_chol_solve=1):
+            raise PhaseError("fused_chol_solve vehicle: wrong result or launches")
+
         # the CPU halves of phase 4 run beside phases 3 and 5 (not beside the
         # host-bound paths above, whose walls they would inflate)
-        for path in (ref_path, replan_path):
+        for path in list(ref_paths.values()) + [replan_path, plain_path]:
             if os.path.exists(path):
                 os.remove(path)
         children = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), mode, path], cwd=ROOT)
-            for mode, path in (("--cpu-reference", ref_path),
-                               ("--cpu-replan", replan_path))]
+            [sys.executable, os.path.abspath(__file__), "--cpu-reference",
+             path, case], cwd=ROOT) for case, path in ref_paths.items()]
+        children.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-replan",
+             replan_path], cwd=ROOT))
 
         # ---- 3. kernels against their plain versions ---------------------------
         plains = {"fused_factor": cuda_fused.fused_factor_plain,
                   "tridiag_solve": cuda_kkt.tridiag_solve_plain,
                   "cho_solve_vec": cuda_kkt.cho_solve_vec_plain,
                   "chol": cuda_kkt.chol_plain,
-                  "cho_solve": cuda_kkt.cho_solve_plain}
-        # chol and cho_solve run on one lane: hold them block by block
-        for c in rcaps.values():
+                  "cho_solve": cuda_kkt.cho_solve_plain,
+                  "tridiag_factor": cuda_kkt.tridiag_factor_plain,
+                  "fused_chol_solve": cuda_kkt.fused_chol_solve_plain}
+        # chol and cho_solve factor and solve stage blocks, on one lane or
+        # on a sweep's B lanes: hold them block by block
+        for c in (*rcaps.values(), pcaps["chol"], pcaps["cho_solve"]):
             c.first = _blockwise(c.first)
             c.late = [_blockwise(a) for a in c.late]
         print("checks: readings are fractions of their bounds (<= 1), the "
@@ -1196,12 +1546,34 @@ def main() -> int:
                   for name, cap in caps.items() if cap is not dcap]
         phases += [(name, cap, "first IPM iteration of the cold replan solve",
                     "last replan iteration") for name, cap in rcaps.items()]
-        for name, cap, first_when, late_when in phases:
-            # every call of the late iteration, but every fourth for the
-            # main path's solves (their dense forward bounds are costly)
-            late = cap.late[::4] if name in ("tridiag_solve", "cho_solve_vec") \
-                else cap.late
-            for when, calls in ((first_when, [cap.first]), (late_when, late)):
+        phases += [(name, cap, "first IPM iteration of the penalized path",
+                    f"penalized path, SCvx iteration {LATE_LOCKSTEP}")
+                   for name, cap in pcaps.items()]
+        phases += [(name, cap, "first IPM iteration of the point-mass path",
+                    f"point-mass path, SCvx iteration {LATE_LOCKSTEP}")
+                   for name, cap in mcaps.items() if name != "discretize_lanes"]
+        # fused_chol_solve is on no path: synthetic SPD batches, float64, at
+        # the vehicle's shape and at the penalized path's stage Hessian's
+        # (H and E' of every node of the B=256, K=50 sweep)
+        synth6 = {}
+        for shape in (VEHICLE, (MAIN_B * MAIN_K, 17, 13)):
+            N6, n6, m6 = shape
+            R6 = torch.randn(N6, n6, n6, generator=gen, dtype=torch.float64)
+            synth6[shape] = (
+                (R6 @ _T(R6) + n6 * torch.eye(n6, dtype=torch.float64)).cuda(),
+                torch.randn(N6, n6, m6, generator=gen, dtype=torch.float64).cuda())
+        checks = [(name, first_when, cap.first, late_when, cap.late)
+                  for name, cap, first_when, late_when in phases]
+        (v_shape, v_args), (s_shape, s_args) = synth6.items()
+        checks.append(("fused_chol_solve", f"synthetic SPD {v_shape}", v_args,
+                       f"synthetic SPD {s_shape}", [s_args]))
+        for name, first_when, first, late_when, late in checks:
+            # every call of the late iteration, but every third for
+            # tridiag_solve (its dense forward bound is costly; 3 is prime
+            # to its 4 calls an IPM iteration, so every kind of solve is held)
+            if name == "tridiag_solve":
+                late = late[::3]
+            for when, calls in ((first_when, [first]), (late_when, late)):
                 if not calls or calls[0] is None:
                     raise PhaseError(f"{name}: no captured call for {when}")
                 before = wrappers[name].launches
@@ -1211,7 +1583,8 @@ def main() -> int:
                     raise PhaseError(f"{name}: a kernel call did not count one launch")
                 all_checks[f"{name} / {when}"] = res
                 if when == first_when:
-                    max_abs[name] = res[0]["max_abs_err"]
+                    # the first path's reading: main, replan, penalized
+                    max_abs.setdefault(name, res[0]["max_abs_err"])
                 top = lambda key: max(r[key] for r in res)  # noqa: E731
                 tot = lambda key: sum(r[key] for r in res)  # noqa: E731
                 reads = "; ".join(f"{key} {top(key):.3f}" for key in res[0]
@@ -1248,15 +1621,26 @@ def main() -> int:
               f"{DISC_F32_FACTOR}x the f32 plain's distance from it (floor "
               f"{DISC_F32_FLOOR_ULPS} f32 ulps); finite in exactly the lanes "
               "where the f64 plain is")
-        for when, a in (("main path, first SCvx iteration", dcap.first),
-                        (f"main path, SCvx iteration {LATE_LOCKSTEP}",
-                         dcap.late[0] if dcap.late else None),
-                        ("replan path, last iteration",
-                         rdcap.late[0] if rdcap.late else None),
-                        (f"replan path at static_reg {REPLAN_CHECK_REG:g}, "
-                         "last iteration",
-                         rdcap6.late[0] if rdcap6.late else None),
-                        ("synthetic: drag, one NaN node", synth)):
+        mcap = mcaps["discretize_lanes"]
+        Xm = mcap.first[2].clone()
+        Xm[1, 3] = float("nan")
+        synth_m = mcap.first[:2] + (Xm,) + mcap.first[3:]
+        PD = PM_DISC
+        for key, when, a in (
+                ("discretize_lanes", "main path, first SCvx iteration",
+                 dcap.first),
+                ("discretize_lanes", f"main path, SCvx iteration {LATE_LOCKSTEP}",
+                 dcap.late[0] if dcap.late else None),
+                ("discretize_lanes", "replan path, last iteration",
+                 rdcap.late[0] if rdcap.late else None),
+                ("discretize_lanes", f"replan path at static_reg "
+                 f"{REPLAN_CHECK_REG:g}, last iteration",
+                 rdcap6.late[0] if rdcap6.late else None),
+                ("discretize_lanes", "synthetic: drag, one NaN node", synth),
+                (PD, "point-mass path, first SCvx iteration", mcap.first),
+                (PD, f"point-mass path, SCvx iteration {LATE_LOCKSTEP} (or "
+                 "its last)", mcap.late[-1] if mcap.late else None),
+                (PD, "point-mass synthetic: one NaN node", synth_m)):
             if a is None:
                 raise PhaseError(f"discretize_lanes: no captured call for {when}")
             before = cuda_disc.discretize_lanes.launches
@@ -1277,14 +1661,14 @@ def main() -> int:
                     dim=1) * 2.0 ** -24).clamp(min=1e-300))[fin].max())
             res["defect_l1"] = float((x_nl - a[2][..., 1:, :]).reshape(
                 gap.shape)[fin].abs().sum())
-            all_checks[f"discretize_lanes / {when}"] = [res]
-            max_abs.setdefault("discretize_lanes", res["max_abs_err"])
+            all_checks[f"{key} / {when}"] = [res]
+            max_abs.setdefault(key, res["max_abs_err"])
             reads = "; ".join(
                 f"{o} {res[o + '_f64']:.3f}/{res[o + '_f32']:.3f} (ulps f64 "
                 f"{res[o + '_ulps64']:.1f}, f32 kernel "
                 f"{res[o + '_ulps32_kernel']:.1f} plain "
                 f"{res[o + '_ulps32_plain']:.1f})" for o in DISC_OUT)
-            print(f"check discretize_lanes ({when}, {res['lanes']} lanes, X "
+            print(f"check {key} ({when}, {res['lanes']} lanes, X "
                   f"{tuple(a[2].shape)}): reference finite in "
                   f"{res['ref_finite']}, plain f32 {res['plain32_finite']}, "
                   f"kernel f32 {res['kernel32_finite']}, f64 "
@@ -1296,7 +1680,7 @@ def main() -> int:
                   f"{res['x_prop_gap_ulps']:.1f} f32 ulps normwise a lane -> "
                   f"{'ok' if res['ok'] else 'FAIL'}")
             if not res["ok"]:
-                failed.append(f"discretize_lanes ({when})")
+                failed.append(f"{key} ({when})")
         with open(os.path.join(ROOT, "build", "chip_smoke_checks.json"), "w") as f:
             json.dump(all_checks, f)
         if failed:
@@ -1330,8 +1714,34 @@ def main() -> int:
                  m, prm, X0, U0.cpu(), s0, sub, foh)),
             ("discretize_lanes, a model without CUDA dynamics", ValueError,
              lambda: cuda_disc.discretize_lanes(dataclasses.replace(
-                 m, name="no_cuda_dynamics", cuda_params=None),
+                 m, name="no_cuda_dynamics", cuda_dynamics=None),
                  prm, X0, U0, s0, sub, foh)),
+            ("discretize_lanes pointmass3dof float16", TypeError,
+             lambda: cuda_disc.discretize_lanes(
+                 *_disc_cast(mcap.first, torch.float16))),
+            ("tridiag_factor float16", TypeError, lambda: cuda_kkt.tridiag_factor(
+                torch.eye(4, dtype=torch.float16, device=dev).expand(1, 2, 4, 4),
+                torch.zeros(1, 1, 4, 4, dtype=torch.float16, device=dev))),
+            ("tridiag_factor n = 33 > 32", ValueError,
+             lambda: cuda_kkt.tridiag_factor(
+                 torch.eye(33, device=dev).expand(1, 2, 33, 33),
+                 torch.zeros(1, 1, 33, 33, device=dev))),
+            ("tridiag_factor CPU and CUDA tensors mixed", ValueError,
+             lambda: cuda_kkt.tridiag_factor(
+                 torch.eye(4, device=dev).expand(1, 2, 4, 4),
+                 torch.zeros(1, 1, 4, 4))),
+            ("tridiag_factor O with the wrong block count", ValueError,
+             lambda: cuda_kkt.tridiag_factor(
+                 torch.eye(4, device=dev).expand(1, 3, 4, 4),
+                 torch.zeros(1, 3, 4, 4, device=dev))),
+            ("fused_chol_solve float16", TypeError,
+             lambda: cuda_kkt.fused_chol_solve(
+                 torch.eye(4, dtype=torch.float16, device=dev)[None],
+                 torch.zeros(1, 4, 2, dtype=torch.float16, device=dev))),
+            ("fused_chol_solve m = 33 > 32", ValueError,
+             lambda: cuda_kkt.fused_chol_solve(
+                 torch.eye(4, device=dev)[None],
+                 torch.zeros(1, 4, 33, device=dev))),
         )
         for what, exc, call in refusals:
             try:
@@ -1345,9 +1755,14 @@ def main() -> int:
         library = {
             "cho_solve_vec": lambda L, b: torch.cholesky_solve(b[..., None], L),
             "chol": lambda A: torch.linalg.cholesky_ex(A),
-            "cho_solve": lambda L, B: torch.cholesky_solve(B, L)}
+            "cho_solve": lambda L, B: torch.cholesky_solve(B, L),
+            "fused_chol_solve": lambda A, B: torch.linalg.solve(A, B)}
         records = []
         plains["discretize_lanes"] = cuda_disc.discretize_lanes_plain
+        wrappers[PM_DISC] = wrappers["discretize_lanes"]
+        plains[PM_DISC] = plains["discretize_lanes"]
+        max_abs["fused_chol_solve"] = all_checks[
+            f"fused_chol_solve / synthetic SPD {v_shape}"][0]["max_abs_err"]
         timed = [(name, cap.first, launches[name], "main path")
                  for name, cap in caps.items()]
         timed.append(("discretize_lanes", rdcap.late[0], None, "replan path"))
@@ -1357,6 +1772,16 @@ def main() -> int:
         timed += [(name, tuple(a.repeat(MAIN_B, *([1] * (a.dim() - 1)))
                                for a in cap.first), None, "B=256 batch")
                   for name, cap in rcaps.items()]
+        timed.append(("tridiag_factor", pcaps["tridiag_factor"].first,
+                      plaunches["tridiag_factor"], "penalized path"))
+        timed.append((PM_DISC, mcap.first, mlaunches["discretize_lanes"],
+                      "point-mass path"))
+        # fused_chol_solve in float32: its vehicle's shape (the record; its
+        # launch is the vehicle's, phase 2e) and the stage-Hessian shape
+        timed.append(("fused_chol_solve", tuple(a.float() for a in v_args),
+                      vlaunches["fused_chol_solve"], "vehicle"))
+        timed.append(("fused_chol_solve", tuple(a.float() for a in s_args),
+                      None, "penalized path's stage Hessian shape"))
         for name, args, n_launch, where in timed:
             ms, plain_ms, lib_ms, rec = _time_kernel(
                 name, args, wrappers[name], plains[name], library.get(name))
@@ -1400,12 +1825,20 @@ def main() -> int:
               f"{[round(w, 1) for w in walls['plain']]}; {card}")
 
         # ---- 4. f64 on the card against the CPU -------------------------------
-        cfg64 = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False)
-        pb64 = _dispersed(P, REF_B, torch.float64, "cuda")
-        t0 = time.perf_counter()
-        st64 = P.solve_batch(model, pb64, cfg64, device="cuda")
-        torch.cuda.synchronize()
-        card_s = time.perf_counter() - t0
+        # the penalized case with the plain factor on the card, a reading, in
+        # a child beside the card runs below (after phase 5: it would share
+        # the card with the timed kernels)
+        children.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--card-plain-factor",
+             plain_path], cwd=ROOT))
+        card64, card_s = {}, {}
+        for case in ref_paths:
+            m64, pb64, cfg64 = reference_case(P, case, "cuda")
+            t0 = time.perf_counter()
+            card64[case] = _reference_summary(
+                P.solve_batch(m64, pb64, cfg64, device="cuda"))
+            torch.cuda.synchronize()
+            card_s[case] = time.perf_counter() - t0
         cfg64r = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False,
                           kkt="pcr", static_reg=REPLAN_CHECK_REG)
         t0 = time.perf_counter()
@@ -1414,21 +1847,55 @@ def main() -> int:
         card_r_s = time.perf_counter() - t0
         rcs = [c.wait(timeout=900) for c in children]
         children = []
-        if any(rcs) or not (os.path.exists(ref_path) and os.path.exists(replan_path)):
-            raise PhaseError(f"f64 CPU reference runs failed (rc={rcs})")
-        cpu = json.load(open(ref_path))
+        paths = list(ref_paths.values()) + [replan_path, plain_path]
+        if any(rcs) or not all(os.path.exists(q) for q in paths):
+            raise PhaseError(f"f64 reference runs failed (rc={rcs})")
         cpu_r = json.load(open(replan_path))
-        sig_card = st64.sigma.cpu().tolist()
-        rel = max(abs(a - b) / abs(b) for a, b in zip(sig_card, cpu["sigma"]))
-        same_its = st64.iterations.cpu().tolist() == cpu["iterations"]
-        same_conv = st64.converged.cpu().tolist() == cpu["converged"]
-        print(f"f64 B={REF_B} K={MAIN_K}: card {card_s:.1f} s, CPU "
-              f"{cpu['seconds']:.1f} s; iterations card "
-              f"{st64.iterations.cpu().tolist()} CPU {cpu['iterations']}; "
-              f"converged {st64.converged.cpu().tolist()}; sigma max rel diff "
-              f"{rel:.3e} (tol 1e-6)")
-        if not (rel <= 1e-6 and same_its and same_conv):
-            raise PhaseError("f64 card run disagrees with the CPU run")
+
+        def rel_diff(a, b):
+            """max |a - b| over max |b| (normwise, arrays or lists)."""
+            a, b = torch.tensor(a, dtype=torch.float64), torch.tensor(b, dtype=torch.float64)
+            return float((a - b).abs().max() / b.abs().max())
+
+        for case, path in ref_paths.items():
+            cpu, card_c = json.load(open(path)), card64[case]
+            # the fixed-time point mass pins sigma: compare the trajectory
+            keys = ("X", "U") if case == "pointmass" else ("sigma",)
+            if case == "pointmass":
+                rel = max(rel_diff(card_c[k], cpu[k]) for k in keys)
+            else:
+                rel = max(abs(a - b) / abs(b) for a, b in zip(card_c["sigma"],
+                                                             cpu["sigma"]))
+            same = all(card_c[k] == cpu[k] for k in ("iterations", "converged"))
+            K64 = PM_K if case == "pointmass" else MAIN_K
+            print(f"f64 {case} B={REF_B} K={K64}: card {card_s[case]:.1f} s, "
+                  f"CPU {cpu['seconds']:.1f} s; iterations card "
+                  f"{card_c['iterations']} CPU {cpu['iterations']}; converged "
+                  f"{card_c['converged']}; {'/'.join(keys)} max rel diff "
+                  f"{rel:.3e} (tol 1e-6)")
+            if not (rel <= 1e-6 and same):
+                raise PhaseError(f"f64 card run ({case}) disagrees with the CPU run")
+        cpu_p = json.load(open(ref_paths["penalized"]))
+        card_pp = json.load(open(plain_path))
+
+        def sig_gaps(a, b):
+            return [f"{abs(x - y) / abs(y):.3e}"
+                    for x, y in zip(a["sigma"], b["sigma"])]
+
+        print(f"  f64 penalized B={REF_B}, tridiag_factor's plain version on "
+              f"the card ({card_pp['seconds']:.1f} s): iterations "
+              f"{card_pp['iterations']}, converged {card_pp['converged']}; "
+              f"sigma relative gap to the CPU {sig_gaps(card_pp, cpu_p)}, "
+              f"to the card with the kernel "
+              f"{sig_gaps(card_pp, card64['penalized'])}, card with the kernel "
+              f"to the CPU {sig_gaps(card64['penalized'], cpu_p)} (a reading: "
+              "summation order alone)")
+        both = [a and b for a, b in zip(card64["main"]["converged"],
+                                        card64["penalized"]["converged"])]
+        gap = [abs(p_ - m_) / abs(m_) for p_, m_, ok in zip(
+            card64["penalized"]["sigma"], card64["main"]["sigma"], both) if ok]
+        print(f"  f64 penalized vs main path sigma, lanes both converged: "
+              f"relative gaps {[f'{g:.3e}' for g in gap]} (a reading)")
         rel_r = max(abs(card_r[k] - cpu_r[k]) / abs(cpu_r[k])
                     for k in ("cold_sigma", "sigma"))
         same_r = all(card_r[k] == cpu_r[k] for k in (
@@ -1463,10 +1930,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-reference":
-        cpu_reference(sys.argv[2])
+    if len(sys.argv) == 4 and sys.argv[1] == "--cpu-reference":
+        cpu_reference(sys.argv[2], sys.argv[3])
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--cpu-replan":
         cpu_replan(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--card-plain-factor":
+        card_plain_factor(sys.argv[2])
         sys.exit(0)
     sys.exit(main())

@@ -3,10 +3,10 @@
 A second package beside ``successiveconvexification_tpu`` (the JAX
 reference), with the same module names where a reader looks for a
 counterpart. It imports ``torch`` only. Plain tensor code is PyTorch; the
-discretize kernel and the KKT kernels of the IPM (six kernels so far) are
-CUDA C++ for Hopper (``csrc/``), built with nvcc on first use and bound
-with ctypes. Every tensor carries an explicit
-scenario axis where the JAX package used ``vmap``.
+discretize kernel and the KKT kernels of the IPM, the counterparts of every
+Pallas kernel of the JAX package, are CUDA C++ for Hopper (``csrc/``),
+built with nvcc on first use and bound with ctypes. Every tensor carries an
+explicit scenario axis where the JAX package used ``vmap``.
 
 Entry points take ``device=None``, meaning the card; they raise when no card
 is present unless the caller passes ``device="cpu"``, which runs the
@@ -20,7 +20,9 @@ from successiveconvexification_tpu_torch.config import (
     SolverConfig,
 )
 from successiveconvexification_tpu_torch.models import (
+    PointMass3DoFParams,
     Rocket6DoFParams,
+    pointmass3dof_model,
     rocket6dof_model,
 )
 from successiveconvexification_tpu_torch.ops.scvx import (
@@ -42,7 +44,9 @@ __all__ = [
     "IPMConfig",
     "ScvxConfig",
     "SolverConfig",
+    "PointMass3DoFParams",
     "Rocket6DoFParams",
+    "pointmass3dof_model",
     "rocket6dof_model",
     "ScvxState",
     "scvx_init",

@@ -11,9 +11,10 @@ Fields the port reads differently from the JAX package:
   * ``IPMConfig.use_pallas`` is accepted but has no effect: the KKT kernels
     launch on CUDA tensors whatever it says, and their plain PyTorch
     versions serve CPU tensors.
-  * ``IPMConfig.kkt_solver`` may be ``"scan"`` (the fused factorization; it
-    raises when the subproblem has rank-one quadratic rows) or ``"pcr"``
-    (the unfused factorization with parallel cyclic reduction);
+  * ``IPMConfig.kkt_solver`` may be ``"scan"`` (the fused factorization,
+    or the unfused one with the block-tridiagonal Cholesky when the
+    subproblem has rank-one quadratic rows) or ``"pcr"`` (the unfused
+    factorization with parallel cyclic reduction);
     ``"ksharded"`` raises. ``IPMConfig.gondzio_correctors`` must be 0.
 """
 

@@ -14,12 +14,15 @@
 //   Sdot   = P f,               zdot  = -P (sA x + sB u)
 //
 // with sA = sigma df/dx, sB = sigma df/du, and writes A = Phi, Phi Bm,
-// Phi Bp, Phi S, Phi z and x_end, batch-first: (B, K-1, 14, 14),
-// (B, K-1, 14, 3), (B, K-1, 14) (the plain version:
+// Phi Bp, Phi S, Phi z and x_end, batch-first: (B, K-1, nx, nx),
+// (B, K-1, nx, nu), (B, K-1, nx) (the plain version:
 // ops/cuda_disc.py discretize_lanes_plain). The Jacobian columns are exact:
-// the model's dynamics are written once here as a device function templated
+// each model's dynamics are written once here as a device function templated
 // on its scalar type and evaluated on a one-direction dual number per
-// column, as forward-mode AD does (the TPU traced model.f through jax.jvp).
+// column, as forward-mode AD does (the TPU traced model.f through jax.jvp,
+// so one kernel served every model; here the kernel is a template over the
+// dynamics struct, instantiated once per model: Rocket6DoF, nx = 14, and
+// PointMass3DoF, nx = 7, each with its own entry points).
 //
 // Bound on the H100: operations. Per lane and RK stage about 16 kFLOP
 // (sA Phi and P sA are 5.5 kFLOP each, P sB 1.2 kFLOP, 17 dual-number
@@ -31,24 +34,27 @@
 // one thread per lane here would hold 518 carry values plus the RK4 stage
 // sums and spill. The algebra splits by columns and rows instead: column j
 // of Phi evolves by sA Phi[:, j] and row j of P by -P[j, :] sA, and row j of
-// Bm, Bp, S and z needs only row j of P. So thread j < 14 owns column j of
-// Phi and state component x_j, thread 14 + j owns row j of P and of Bm, Bp,
-// S, z: each holds its 14 (+ up to 8) values three times (the carry, the
-// RK4 stage sum, the stage input) in registers. Per stage evaluation:
-//   A. threads 0..16 each evaluate the dynamics on a dual number seeded in
-//      direction j (x_0..x_13, u_0..u_2) and write sigma * column j of
+// Bm, Bp, S and z needs only row j of P. So thread j < nx owns column j of
+// Phi and state component x_j, thread nx + j owns row j of P and of Bm, Bp,
+// S, z: each holds its nx (+ up to 2 nu + 2) values three times (the carry,
+// the RK4 stage sum, the stage input) in registers. This needs 2 nx <= 32
+// and nx + nu <= 32 threads, which both models meet. Per stage evaluation:
+//   A. threads 0..nx+nu-1 each evaluate the dynamics on a dual number
+//      seeded in direction j (x_0.., u_0..) and write sigma * column j of
 //      [A | B] to shared memory (thread 0 also f);
-//   B. thread i < 14 forms row i of sA x + sB u;
-//   C. threads 0..27 form their own 14 derivatives with ONE loop,
+//   B. thread i < nx forms row i of sA x + sB u;
+//   C. threads 0..2nx-1 form their own nx derivatives with ONE loop,
 //      out[i] = sum_k M[i][k] v[k] where M is sA for a Phi column and sA'
-//      (negated) for a P row, so the warp does not diverge on the 196-term
+//      (negated) for a P row, so the warp does not diverge on the nx^2-term
 //      products; the P rows then add P sB, P f and P w.
 // __syncwarp() separates the phases; a lane's working set in shared memory
-// is 308 values (1.2 KB in float32). Constants are formed in double and
-// rounded to the scalar type, as the plain version's Python floats are.
-// A lane whose inputs are not finite comes out not finite; nothing faults.
+// is lane_smem<Dyn>() values (320 for the rocket, 1.25 KB in float32; 128
+// for the point mass). Constants are formed in double and rounded to the
+// scalar type, as the plain version's Python floats are. A lane whose
+// inputs are not finite comes out not finite; nothing faults.
 // First version: correct and simple. It recomputes the dynamics' primal in
-// every direction and leaves threads 17..31 idle in phase A.
+// every direction and leaves threads nx+nu..31 idle in phase A (17..31 for
+// the rocket, 10..31 for the point mass).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,7 +62,6 @@
 namespace {
 
 constexpr int kWarps = 4;        // lanes per block
-constexpr int kSmem = 320;       // shared values per lane (308 used)
 
 // ---------------------------------------------------------------- duals
 template <typename T>
@@ -170,6 +175,41 @@ struct Rocket6DoF {
   }
 };
 
+// The 3-DoF point mass (models/pointmass3dof.py dynamics), term for term:
+//   x = (m, r[3], v[3]), u = T_I[3];  p = (alpha_m, g_i[3])
+//   (pointmass3dof.kernel_params)
+//   mdot = -alpha_m ||u||,  rdot = v,  vdot = u / m + g_i,
+// with ||.|| = sqrt(sum + 1e-12) (base.safe_norm). No retraction.
+struct PointMass3DoF {
+  static constexpr int NX = 7, NU = 3, NP = 4;
+
+  template <typename T, typename S>
+  __device__ __forceinline__ static void f(const T* p, const S* x,
+                                           const S* u, S* out) {
+    const T eps = T(1e-12);
+    const S m = x[0];
+    const S u0 = u[0], u1 = u[1], u2 = u[2];
+    const S nu = dsqrt(u0 * u0 + u1 * u1 + u2 * u2 + eps);
+    out[0] = -(p[0] * nu);
+    out[1] = x[4];
+    out[2] = x[5];
+    out[3] = x[6];
+    out[4] = u0 / m + p[1];
+    out[5] = u1 / m + p[2];
+    out[6] = u2 / m + p[3];
+  }
+};
+
+// Shared values per lane: the stage phases hold sA, sB, f, w and x; the
+// final products Phi, Bm, Bp, S and z. Rounded up to a multiple of 32.
+template <class Dyn>
+__host__ __device__ constexpr int lane_smem() {
+  constexpr int nx = Dyn::NX, nu = Dyn::NU;
+  constexpr int stage = nx * nx + nx * nu + 3 * nx;
+  constexpr int final_ = nx * nx + 2 * nx * nu + 2 * nx;
+  return ((stage > final_ ? stage : final_) + 31) / 32 * 32;
+}
+
 // ---------------------------------------------------------------- kernel
 template <typename T, class Dyn>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -181,6 +221,8 @@ __global__ void __launch_bounds__(kWarps * 32)
                       int K, int substeps, int foh) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU, NP = Dyn::NP;
   constexpr int NE = 2 * NU + 2;  // extras a P row owns: Bm, Bp, S, z
+  constexpr int kSmem = lane_smem<Dyn>();
+  static_assert(2 * NX <= 32 && NX + NU <= 32, "one warp per lane");
   extern __shared__ unsigned char smem_raw[];
   const int warp = threadIdx.x / 32;
   const int t = threadIdx.x % 32;
@@ -385,7 +427,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T>
+template <typename T, class Dyn>
 int launch_discretize(const void* prm, const void* X, const void* U,
                       const void* sig, void* A, void* Bm, void* Bp, void* S,
                       void* z, void* xe, int Bn, int K, int substeps, int foh,
@@ -396,8 +438,8 @@ int launch_discretize(const void* prm, const void* X, const void* U,
   if (L == 0) return (int)cudaSuccess;
   if (L > (long long)0x7fffffff - kWarps) return (int)cudaErrorInvalidValue;
   const int blocks = (int)((L + kWarps - 1) / kWarps);
-  const size_t smem = (size_t)kWarps * kSmem * sizeof(T);
-  discretize_kernel<T, Rocket6DoF>
+  const size_t smem = (size_t)kWarps * lane_smem<Dyn>() * sizeof(T);
+  discretize_kernel<T, Dyn>
       <<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
           (const T*)prm, (const T*)X, (const T*)U, (const T*)sig, (T*)A,
           (T*)Bm, (T*)Bp, (T*)S, (T*)z, (T*)xe, Bn, K, substeps, foh);
@@ -406,22 +448,22 @@ int launch_discretize(const void* prm, const void* X, const void* U,
 
 }  // namespace
 
+// One pair of entry points per model's dynamics:
+// scvx_discretize_lanes_<model>_<dtype>.
+#define SCVX_DISCRETIZE_ENTRY(MODEL, DYN, SFX, T)                            \
+  int scvx_discretize_lanes_##MODEL##_##SFX(                                 \
+      const void* prm, const void* X, const void* U, const void* sig,       \
+      void* A, void* Bm, void* Bp, void* S, void* z, void* xe, int Bn,      \
+      int K, int substeps, int foh, void* stream) {                         \
+    return launch_discretize<T, DYN>(prm, X, U, sig, A, Bm, Bp, S, z, xe,   \
+                                     Bn, K, substeps, foh, stream);         \
+  }
+
 extern "C" {
 
-int scvx_discretize_lanes_f32(const void* prm, const void* X, const void* U,
-                              const void* sig, void* A, void* Bm, void* Bp,
-                              void* S, void* z, void* xe, int Bn, int K,
-                              int substeps, int foh, void* stream) {
-  return launch_discretize<float>(prm, X, U, sig, A, Bm, Bp, S, z, xe, Bn, K,
-                                  substeps, foh, stream);
-}
-
-int scvx_discretize_lanes_f64(const void* prm, const void* X, const void* U,
-                              const void* sig, void* A, void* Bm, void* Bp,
-                              void* S, void* z, void* xe, int Bn, int K,
-                              int substeps, int foh, void* stream) {
-  return launch_discretize<double>(prm, X, U, sig, A, Bm, Bp, S, z, xe, Bn,
-                                   K, substeps, foh, stream);
-}
+SCVX_DISCRETIZE_ENTRY(rocket6dof, Rocket6DoF, f32, float)
+SCVX_DISCRETIZE_ENTRY(rocket6dof, Rocket6DoF, f64, double)
+SCVX_DISCRETIZE_ENTRY(pointmass3dof, PointMass3DoF, f32, float)
+SCVX_DISCRETIZE_ENTRY(pointmass3dof, PointMass3DoF, f64, double)
 
 }  // extern "C"

@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blocktri.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -190,27 +192,15 @@ __global__ void fused_factor_kernel(
           sO[i] = o;
         }
       }
-      // ---- C_{k-1} = L_{k-2}^-1 O_{k-2}: one column per thread ---------------
-      for (int c = tid; c < nrx; c += nt) {
-        for (int a = 0; a < nrx; ++a) {
-          T s = T(0);
-          if (k >= 2) {
-            s = sOp[a * nrx + c];
-            for (int m = 0; m < a; ++m) s -= sLp[a * nrx + m] * sC[m * nrx + c];
-            s = s / sLp[a * nrx + a];
-          }
-          sC[a * nrx + c] = s;
-        }
+      // ---- C_{k-1} = L_{k-2}^-1 O_{k-2} (C_0 = 0): one column per thread ----
+      if (k >= 2) {
+        tri_coupling(sLp, sOp, sC, nrx, tid, nt);
+      } else {
+        for (int i = tid; i < nrx * nrx; i += nt) sC[i] = T(0);
       }
       __syncthreads();
       // ---- S = D - C'C (lower), L_{k-1} = chol(S) ----------------------------
-      for (int i = tid; i < nrx * nrx; i += nt) {
-        const int a = i / nrx, c = i % nrx;
-        if (c > a) continue;
-        T acc = sD[i];
-        for (int t = 0; t < nrx; ++t) acc -= sC[t * nrx + a] * sC[t * nrx + c];
-        sS[i] = acc;
-      }
+      tri_schur(sD, sC, sS, nrx, tid, nt);
       __syncthreads();
       block_chol(sS, nrx);
       const size_t o = (bk1 + k - 1) * NN;

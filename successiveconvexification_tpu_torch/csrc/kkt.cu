@@ -1,7 +1,7 @@
 // Block factorizations and solves of the structured KKT system, written for
 // Hopper (sm_90a).
 //
-// Four kernels with a plain C interface (loaded with ctypes by
+// Six kernels with a plain C interface (loaded with ctypes by
 // ops/cuda_kkt.py). Every entry point launches on the caller's stream,
 // allocates nothing, and returns cudaGetLastError().
 //
@@ -70,9 +70,46 @@
 //   be row-major (N, n, m): the wrapper materializes a transposed view
 //   (E' of the port's E) with .contiguous() rather than folding the
 //   transpose into the indexing, which would put the lanes n values apart.
+//
+// ---------------------------------------------------------------------------
+// tridiag_factor: block Cholesky of B SPD block-tridiagonal systems, each
+//   with N diagonal blocks D_k and couplings M[k, k+1] = O_k (n x n):
+//     C_k = L_{k-1}^-1 O_{k-1}  (C_0 = 0),  L_k = chol(D_k - C_k' C_k).
+//   Replaces pallas_kkt.py _tridiag_factor_kernel (pallas_kkt.tridiag_factor
+//   under vmap: the Schur system of the unfused `scan` factorization,
+//   ipm.py:243-244, which runs when the subproblem has rank-one quadratic
+//   rows; N = K-1 = 49, n = 13 at B = 256 on the penalized path). Bound on
+//   the H100: bytes (D's lower triangle and O read once, L and C written
+//   once, about 2.3 n^3 flops a block). The steps along N are sequential.
+//   Design: one warp per lane walks k = 0..N-1, keeping L_{k-1}, C_k and S_k
+//   in shared memory (3 n^2 values). C_k comes by forward substitution, one
+//   column per lane of the warp, reading O_{k-1} straight from device memory
+//   (the lanes read consecutive addresses); S_k = D_k - C_k'C_k, one entry
+//   per lane; then the warp Cholesky of `chol` below. The first two steps
+//   are the device functions of blocktri.cuh, which the fused factorization
+//   (fused_factor.cu) runs with a thread block instead of a warp. The TPU
+//   carried L_{k-1} in VMEM scratch between grid steps along N; here the
+//   loop along N runs inside the warp. Breakdown follows
+//   smallla.blocktridiag_factor: a block with a pivot <= 0 or non-finite
+//   comes out entirely NaN, and so does every later block of its lane (a NaN
+//   L_k makes C_{k+1} NaN), which the IPM's stall exit relies on.
+//
+// ---------------------------------------------------------------------------
+// fused_chol_solve: A X = B for N independent SPD blocks, A n x n, B and X
+//   n x m (n, m <= 32), the factor and both solves in one launch.
+//   Replaces pallas_kkt.py _fused_chol_solve_kernel (fused_chol_solve, which
+//   the JAX package runs only in tests/test_pallas_kkt.py, as a layout test
+//   vehicle). Bound on the H100: bytes (A's lower triangle and B read once,
+//   X written once; n^3/3 + 2 n^2 m flops a block).
+//   Design: `chol` and `cho_solve` below composed in one warp per block: the
+//   warp copies A's lower triangle into shared memory, factors it there, and
+//   lane c solves column c against the factor, which never leaves shared
+//   memory. A block whose factor breaks down comes out entirely NaN.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "blocktri.cuh"
 
 namespace {
 
@@ -179,24 +216,13 @@ __device__ __forceinline__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
 }
 
+// In-place lower Cholesky of the n x n row-major block `a` in shared memory
+// by the whole warp (lane li), left-looking, column by column; the upper
+// triangle is not read. Returns true (on every lane) when a pivot is <= 0
+// or not finite; `a` then holds garbage.
 template <typename T>
-__global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int N,
-                            int n) {
-  extern __shared__ unsigned char smem_raw[];
-  const int warp = threadIdx.x / 32;
-  const int li = threadIdx.x % 32;
-  const int blk = blockIdx.x * (blockDim.x / 32) + warp;
-  if (blk >= N) return;  // the whole warp leaves together
+__device__ bool warp_chol(T* a, int n, int li) {
   const unsigned full = 0xffffffffu;
-  const int nn = n * n;
-  T* a = reinterpret_cast<T*>(smem_raw) + (size_t)warp * nn;
-  const T* Ab = A + (size_t)blk * nn;
-  for (int t = li; t < nn; t += 32) {
-    const int r = t / n, c = t - r * n;
-    if (c <= r) a[t] = Ab[t];  // only the lower triangle is read
-  }
-  __syncwarp();
-
   bool bad = false;  // warp-uniform: every lane tests the same pivot
   for (int j = 0; j < n; ++j) {
     // lane i >= j: s_i = A[i][j] - sum_{k<j} L[i][k] L[j][k]; columns < j of
@@ -218,35 +244,37 @@ __global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int N,
     }
     __syncwarp();
   }
+  return bad;
+}
 
-  T* Lb = L + (size_t)blk * nn;
-  const T nan = quiet_nan<T>();
-  for (int t = li; t < nn; t += 32) {
+// Copy the lower triangle of the n x n block `src` into `a` (coalesced).
+template <typename T>
+__device__ __forceinline__ void warp_load_lower(const T* src, T* a, int n,
+                                                int li) {
+  for (int t = li; t < n * n; t += 32) {
     const int r = t / n, c = t - r * n;
-    Lb[t] = bad ? nan : (c <= r ? a[t] : T(0));
+    if (c <= r) a[t] = src[t];
   }
 }
 
+// Write the factor in `a` to `dst` with zeros above the diagonal, or NaN
+// everywhere when `bad`.
 template <typename T>
-__global__ void cho_solve_kernel(const T* __restrict__ L,
-                                 const T* __restrict__ B, T* __restrict__ X,
-                                 int N, int n, int m) {
-  extern __shared__ unsigned char smem_raw[];
-  const int warp = threadIdx.x / 32;
-  const int li = threadIdx.x % 32;
-  const int blk = blockIdx.x * (blockDim.x / 32) + warp;
-  if (blk >= N) return;  // the whole warp leaves together
-  const int nn = n * n;
-  T* l = reinterpret_cast<T*>(smem_raw) + (size_t)warp * nn;
-  const T* Lb = L + (size_t)blk * nn;
-  for (int t = li; t < nn; t += 32) {
+__device__ __forceinline__ void warp_store_factor(const T* a, T* dst, int n,
+                                                  bool bad, int li) {
+  const T nan = quiet_nan<T>();
+  for (int t = li; t < n * n; t += 32) {
     const int r = t / n, c = t - r * n;
-    if (c <= r) l[t] = Lb[t];  // only the lower triangle is read
+    dst[t] = bad ? nan : (c <= r ? a[t] : T(0));
   }
-  __syncwarp();
-  if (li >= m) return;
-  const T* Bb = B + (size_t)blk * n * m;
-  T* Xb = X + (size_t)blk * n * m;
+}
+
+// Lane li < m solves (l l') x = b for column li of the n x m row-major
+// right-hand side; l (lower, in shared memory) is read by every lane alike.
+template <typename T>
+__device__ __forceinline__ void lane_cho_solve_col(const T* l, const T* Bb,
+                                                   T* Xb, int n, int m,
+                                                   int li) {
   T y[kMaxN];
   // forward: L y = b
   for (int r = 0; r < n; ++r) {
@@ -261,6 +289,105 @@ __global__ void cho_solve_kernel(const T* __restrict__ L,
     y[r] = s / l[r * n + r];
   }
   for (int r = 0; r < n; ++r) Xb[r * m + li] = y[r];
+}
+
+template <typename T>
+__global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int N,
+                            int n) {
+  extern __shared__ unsigned char smem_raw[];
+  const int warp = threadIdx.x / 32;
+  const int li = threadIdx.x % 32;
+  const int blk = blockIdx.x * (blockDim.x / 32) + warp;
+  if (blk >= N) return;  // the whole warp leaves together
+  const size_t nn = (size_t)n * n;
+  T* a = reinterpret_cast<T*>(smem_raw) + (size_t)warp * nn;
+  warp_load_lower(A + blk * nn, a, n, li);
+  __syncwarp();
+  const bool bad = warp_chol(a, n, li);
+  warp_store_factor(a, L + blk * nn, n, bad, li);
+}
+
+template <typename T>
+__global__ void cho_solve_kernel(const T* __restrict__ L,
+                                 const T* __restrict__ B, T* __restrict__ X,
+                                 int N, int n, int m) {
+  extern __shared__ unsigned char smem_raw[];
+  const int warp = threadIdx.x / 32;
+  const int li = threadIdx.x % 32;
+  const int blk = blockIdx.x * (blockDim.x / 32) + warp;
+  if (blk >= N) return;  // the whole warp leaves together
+  const size_t nn = (size_t)n * n;
+  T* l = reinterpret_cast<T*>(smem_raw) + (size_t)warp * nn;
+  warp_load_lower(L + blk * nn, l, n, li);  // only the lower triangle is read
+  __syncwarp();
+  if (li >= m) return;
+  lane_cho_solve_col(l, B + (size_t)blk * n * m, X + (size_t)blk * n * m, n,
+                     m, li);
+}
+
+template <typename T>
+__global__ void fused_chol_solve_kernel(const T* __restrict__ A,
+                                        const T* __restrict__ B,
+                                        T* __restrict__ X, int N, int n,
+                                        int m) {
+  extern __shared__ unsigned char smem_raw[];
+  const int warp = threadIdx.x / 32;
+  const int li = threadIdx.x % 32;
+  const int blk = blockIdx.x * (blockDim.x / 32) + warp;
+  if (blk >= N) return;  // the whole warp leaves together
+  const size_t nn = (size_t)n * n;
+  T* a = reinterpret_cast<T*>(smem_raw) + (size_t)warp * nn;
+  warp_load_lower(A + blk * nn, a, n, li);
+  __syncwarp();
+  const bool bad = warp_chol(a, n, li);
+  T* Xb = X + (size_t)blk * n * m;
+  if (bad) {
+    const T nan = quiet_nan<T>();
+    for (int t = li; t < n * m; t += 32) Xb[t] = nan;
+    return;
+  }
+  if (li < m) lane_cho_solve_col(a, B + (size_t)blk * n * m, Xb, n, m, li);
+}
+
+template <typename T>
+__global__ void tridiag_factor_kernel(const T* __restrict__ D,
+                                      const T* __restrict__ O,
+                                      T* __restrict__ L, T* __restrict__ C,
+                                      int B, int N, int n) {
+  extern __shared__ unsigned char smem_raw[];
+  const int warp = threadIdx.x / 32;
+  const int li = threadIdx.x % 32;
+  const int lane_b = blockIdx.x * (blockDim.x / 32) + warp;
+  if (lane_b >= B) return;  // the whole warp leaves together
+  const size_t nn = (size_t)n * n;
+  T* sLp = reinterpret_cast<T*>(smem_raw) + (size_t)warp * 3 * nn;  // L_{k-1}
+  T* sC = sLp + nn;                                                  // C_k
+  T* sS = sC + nn;                                         // S_k, then L_k
+  const T* Db = D + (size_t)lane_b * N * nn;
+  const T* Ob = O + (size_t)lane_b * (N - 1) * nn;
+  T* Lb = L + (size_t)lane_b * N * nn;
+  T* Cb = C + (size_t)lane_b * N * nn;
+  const T nan = quiet_nan<T>();
+  for (int k = 0; k < N; ++k) {
+    if (k == 0) {
+      for (int t = li; t < (int)nn; t += 32) sC[t] = T(0);
+    } else {
+      tri_coupling(sLp, Ob + (k - 1) * nn, sC, n, li, 32);
+    }
+    __syncwarp();
+    tri_schur(Db + k * nn, sC, sS, n, li, 32);
+    __syncwarp();
+    const bool bad = warp_chol(sS, n, li);
+    warp_store_factor(sS, Lb + k * nn, n, bad, li);
+    for (int t = li; t < (int)nn; t += 32) {
+      Cb[k * nn + t] = sC[t];
+      if (bad) sS[t] = nan;  // every later block of the lane comes out NaN
+    }
+    __syncwarp();
+    T* tmp = sLp;  // L_k becomes L_{(k+1)-1}
+    sLp = sS;
+    sS = tmp;
+  }
 }
 
 template <typename T>
@@ -297,6 +424,38 @@ int launch_cho_solve(const void* L, const void* B, void* X, int N, int n,
   if (N == 0) return (int)cudaSuccess;
   cho_solve_kernel<T><<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
       (const T*)L, (const T*)B, (T*)X, N, n, m);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fused_chol_solve(const void* A, const void* B, void* X, int N,
+                            int n, int m, void* stream) {
+  if (m < 1 || m > 32) return (int)cudaErrorInvalidValue;
+  int blocks, warps;
+  size_t smem;
+  const int err = warp_per_block_grid<T>(N, n, &blocks, &warps, &smem);
+  if (err != (int)cudaSuccess) return err;
+  if (N == 0) return (int)cudaSuccess;
+  fused_chol_solve_kernel<T><<<blocks, warps * 32, smem,
+                               (cudaStream_t)stream>>>(
+      (const T*)A, (const T*)B, (T*)X, N, n, m);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_tridiag_factor(const void* D, const void* O, void* L, void* C,
+                          int B, int N, int n, void* stream) {
+  if (n < 1 || n > kMaxN || N < 1 || B < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  // L_{k-1}, C_k and S_k of each warp's lane in shared memory
+  const size_t per_warp = 3 * (size_t)n * n * sizeof(T);
+  const size_t limit = 48 * 1024;
+  int warps = 4;
+  while (warps > 1 && warps * per_warp > limit) --warps;
+  const int blocks = (B + warps - 1) / warps;
+  tridiag_factor_kernel<T><<<blocks, warps * 32, warps * per_warp,
+                             (cudaStream_t)stream>>>(
+      (const T*)D, (const T*)O, (T*)L, (T*)C, B, N, n);
   return (int)cudaGetLastError();
 }
 
@@ -369,6 +528,26 @@ int scvx_cho_solve_f32(const void* L, const void* B, void* X, int N, int n,
 int scvx_cho_solve_f64(const void* L, const void* B, void* X, int N, int n,
                        int m, void* stream) {
   return launch_cho_solve<double>(L, B, X, N, n, m, stream);
+}
+
+int scvx_fused_chol_solve_f32(const void* A, const void* B, void* X, int N,
+                              int n, int m, void* stream) {
+  return launch_fused_chol_solve<float>(A, B, X, N, n, m, stream);
+}
+
+int scvx_fused_chol_solve_f64(const void* A, const void* B, void* X, int N,
+                              int n, int m, void* stream) {
+  return launch_fused_chol_solve<double>(A, B, X, N, n, m, stream);
+}
+
+int scvx_tridiag_factor_f32(const void* D, const void* O, void* L, void* C,
+                            int B, int N, int n, void* stream) {
+  return launch_tridiag_factor<float>(D, O, L, C, B, N, n, stream);
+}
+
+int scvx_tridiag_factor_f64(const void* D, const void* O, void* L, void* C,
+                            int B, int N, int n, void* stream) {
+  return launch_tridiag_factor<double>(D, O, L, C, B, N, n, stream);
 }
 
 }  // extern "C"

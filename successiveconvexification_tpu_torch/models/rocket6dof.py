@@ -32,7 +32,12 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from successiveconvexification_tpu_torch.models.base import Model, safe_norm
+from successiveconvexification_tpu_torch.models.base import (
+    CudaDynamics,
+    Model,
+    Params,
+    safe_norm,
+)
 from successiveconvexification_tpu_torch.utils.quaternion import (
     cross,
     quat_kinematics,
@@ -60,8 +65,10 @@ _FIELD_TAIL = {
 
 
 @dataclasses.dataclass(frozen=True)
-class Rocket6DoFParams:
+class Rocket6DoFParams(Params):
     """Physical parameters: tensors with a common leading batch shape."""
+
+    TAIL = _FIELD_TAIL
 
     m_wet: torch.Tensor
     m_dry: torch.Tensor
@@ -85,42 +92,6 @@ class Rocket6DoFParams:
     r_final: torch.Tensor
     v_final: torch.Tensor
     tf_guess: torch.Tensor
-
-    def replace(self, **kwargs) -> "Rocket6DoFParams":
-        return dataclasses.replace(self, **kwargs)
-
-    def fields(self) -> dict:
-        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
-
-    def map(self, fn) -> "Rocket6DoFParams":
-        """Apply ``fn(tensor, tail_shape)`` to every field."""
-        return Rocket6DoFParams(**{k: fn(v, _FIELD_TAIL[k])
-                                   for k, v in self.fields().items()})
-
-    @property
-    def batch_shape(self) -> torch.Size:
-        return self.m_wet.shape
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.m_wet.dtype
-
-    @property
-    def device(self) -> torch.device:
-        return self.m_wet.device
-
-    def unsqueeze(self, n: int) -> "Rocket6DoFParams":
-        """Insert ``n`` singleton axes after the batch shape of every field."""
-        nb = len(self.batch_shape)
-
-        def one(v, tail):
-            return v.reshape(v.shape[:nb] + (1,) * n + tuple(tail))
-
-        return self.map(one)
-
-    def index(self, idx) -> "Rocket6DoFParams":
-        """Select lanes along the (single) leading batch axis."""
-        return self.map(lambda v, tail: v[idx])
 
 
 def default_params(dtype=torch.float32, device="cpu") -> Rocket6DoFParams:
@@ -158,15 +129,9 @@ def default_params(dtype=torch.float32, device="cpu") -> Rocket6DoFParams:
 
 def params_from_numpy(d: Mapping, device="cpu",
                       dtype=torch.float64) -> Rocket6DoFParams:
-    """Build port params from a mapping of field name -> numpy array.
-
-    The JAX package's params carry across as
-    ``{f: np.asarray(getattr(p, f)) for f in the dataclass fields}``.
-    """
-    return Rocket6DoFParams(**{
-        k: torch.as_tensor(np.array(d[k]), dtype=dtype, device=device)
-        for k in _FIELD_TAIL
-    })
+    """Build port params from a mapping of field name -> numpy array (the
+    JAX package's params carry across this way; ``Params.from_numpy``)."""
+    return Rocket6DoFParams.from_numpy(d, device=device, dtype=dtype)
 
 
 def state_from_numpy(st, device="cpu", dtype=torch.float64):
@@ -394,7 +359,7 @@ def rocket6dof_model() -> Model:
             nr=NX - 1,
             init_pinned_r=tuple([True] * 7 + [False] * 3 + [True] * 3),
             term_pinned_r=tuple([False] + [True] * 12),
-            cuda_params=kernel_params,
+            cuda_dynamics=CudaDynamics("rocket6dof", kernel_params),
         )
     return _MODEL["m"]
 

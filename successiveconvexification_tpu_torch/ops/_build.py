@@ -6,7 +6,8 @@ library under ``build/`` at the repository root, compiled on first use:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source, so an edited source is rebuilt.
+The file name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is rebuilt.
 ``build_all()`` starts one nvcc per source, all at once, and waits for them.
 Nothing here runs at import time: the CPU tests import this module too.
 """
@@ -40,7 +41,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD / f"{name}-{digest}.so"
 
 

@@ -15,8 +15,10 @@ shape broadcasts against X's leading dimensions, and return
 multiplied by Phi(h) (the retraction is ``discretize``'s, outside).
 ``discretize`` takes the kernel for CUDA tensors and the plain version for
 CPU tensors; the kernel wrapper raises on anything else, and on a model
-whose dynamics the kernel does not have (``Model.cuda_params`` is None).
-``discretize_lanes.launches`` counts the kernel launches.
+whose dynamics the kernel does not have (``Model.cuda_dynamics`` is None).
+The kernel is instantiated once per model's dynamics; the model names its
+instantiation (``Model.cuda_dynamics.name``).
+``discretize_lanes.launches`` counts the kernel launches of every model.
 """
 
 from __future__ import annotations
@@ -25,6 +27,15 @@ import torch
 
 from successiveconvexification_tpu_torch.ops import _build
 from successiveconvexification_tpu_torch.ops.integrate import mv, rk4
+
+
+def kernel_dynamics(model) -> str:
+    """The name of ``model``'s dynamics in csrc/disc.cu; raises for a model
+    the kernel does not have."""
+    if model.cuda_dynamics is None:
+        raise ValueError(f"discretize_lanes: model {model.name!r} has no CUDA "
+                         "dynamics (Model.cuda_dynamics is None)")
+    return model.cuda_dynamics.name
 
 
 def discretize_lanes_plain(model, params, X: torch.Tensor, U: torch.Tensor,
@@ -77,13 +88,10 @@ def discretize_lanes(model, params, X: torch.Tensor, U: torch.Tensor,
                      sigma: torch.Tensor, substeps: int, foh: bool = True):
     """The kernel: one launch, a warp per (scenario, interval) lane.
 
-    ``model.cuda_params(params)`` packs the fields the kernel's dynamics
-    read, (P..., n); csrc/disc.cu has the rocket6dof dynamics only."""
-    if model.cuda_params is None:
-        raise ValueError(
-            f"discretize_lanes: model {model.name!r} has no CUDA dynamics "
-            "(Model.cuda_params is None; csrc/disc.cu has rocket6dof's)")
-    pk = model.cuda_params(params)
+    ``model.cuda_dynamics`` names the instantiation and packs the fields
+    its dynamics read, (P..., n)."""
+    dyn = kernel_dynamics(model)
+    pk = model.cuda_dynamics.pack(params)
     ts = (X, U, sigma, pk)
     if len({t.dtype for t in ts}) > 1:
         raise ValueError("discretize_lanes: mixed dtypes "
@@ -107,7 +115,7 @@ def discretize_lanes(model, params, X: torch.Tensor, U: torch.Tensor,
     A, Bm, Bp = out(nx, nx), out(nx, nu), out(nx, nu)
     S, z, x_end = out(nx), out(nx), out(nx)
     fn = _build.declare(_build.library("disc"),
-                        f"scvx_discretize_lanes_{sfx}", 10, 4)
+                        f"scvx_discretize_lanes_{dyn}_{sfx}", 10, 4)
     err = fn(pkc.data_ptr(), Xc.data_ptr(), Uc.data_ptr(), sg.data_ptr(),
              A.data_ptr(), Bm.data_ptr(), Bp.data_ptr(), S.data_ptr(),
              z.data_ptr(), x_end.data_ptr(), Bn, K, substeps, int(bool(foh)),

@@ -10,11 +10,21 @@ kernels the ported paths run:
   - ``chol``: lower Cholesky of N tiny SPD blocks (replaces
     ``pallas_kkt.chol`` / ``_chol_kernel``);
   - ``cho_solve``: (L L') X = B for N tiny blocks, matrix rhs (replaces
-    ``pallas_kkt.cho_solve`` / ``_cho_solve_kernel``).
+    ``pallas_kkt.cho_solve`` / ``_cho_solve_kernel``);
+  - ``tridiag_factor``: the block Cholesky factors of B block-tridiagonal
+    systems (replaces ``pallas_kkt.tridiag_factor`` /
+    ``_tridiag_factor_kernel``);
+  - ``fused_chol_solve``: A X = B for N tiny SPD blocks, factor and solves in
+    one launch (replaces ``pallas_kkt.fused_chol_solve`` /
+    ``_fused_chol_solve_kernel``).
 
 The first two run on the main path (fused ``scan`` factorization), the
-last two on the single-lane replan path (unfused factorization, PCR);
-``cho_solve_vec`` runs on both.
+next two on the single-lane replan path (unfused factorization, PCR);
+``cho_solve_vec`` runs on both. The unfused ``scan`` factorization (a
+subproblem with rank-one quadratic rows) runs ``chol``, ``cho_solve``,
+``tridiag_factor``, ``tridiag_solve`` and ``cho_solve_vec``.
+``fused_chol_solve`` is on no path, as in the JAX package, whose tests
+alone call it.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and uses its
 plain PyTorch version on a CPU tensor, only because the tensor lies on the
@@ -143,3 +153,64 @@ def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 
 cho_solve.launches = 0
+
+
+def tridiag_factor_plain(D: torch.Tensor, O: torch.Tensor):
+    return smallla.blocktridiag_factor(D, O)
+
+
+def tridiag_factor(D: torch.Tensor, O: torch.Tensor):
+    """Block Cholesky of SPD block-tridiagonal systems: D (B, N, n, n)
+    diagonal blocks, O (B, N-1, n, n) couplings M[k, k+1] = O_k, n <= 32.
+    Returns L, C (B, N, n, n): L_k = chol(D_k - C_k' C_k), C_k =
+    L_{k-1}^-1 O_{k-1}, C_0 = 0. From a block whose pivot is <= 0 or not
+    finite on, every block of the lane comes out NaN."""
+    if D.device.type == "cpu" and O.device.type == "cpu":
+        return tridiag_factor_plain(D, O)
+    sfx = _build.suffix("tridiag_factor", D, O)
+    if (D.dim() != 4 or D.shape[-2] != D.shape[-1] or D.shape[1] < 1
+            or O.shape != (D.shape[0], D.shape[1] - 1) + D.shape[2:]
+            or D.shape[-1] > 32):
+        raise ValueError(f"tridiag_factor: shapes {tuple(D.shape)}, "
+                         f"{tuple(O.shape)}")
+    B, N, n, _ = D.shape
+    Dc, Oc = D.contiguous(), O.contiguous()
+    L = torch.empty_like(Dc)
+    C = torch.empty_like(Dc)
+    err = _fn("tridiag_factor", sfx, 4, 3)(
+        Dc.data_ptr(), Oc.data_ptr(), L.data_ptr(), C.data_ptr(), B, N, n,
+        torch.cuda.current_stream(D.device).cuda_stream)
+    _build.check(err, "tridiag_factor")
+    tridiag_factor.launches += 1
+    return L, C
+
+
+tridiag_factor.launches = 0
+
+
+def fused_chol_solve_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return smallla.cho_solve(smallla.chol(A), B)
+
+
+def fused_chol_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve A_i X_i = B_i; A (..., n, n) SPD, B (..., n, m), n, m <= 32.
+    A block whose Cholesky factor breaks down comes out entirely NaN."""
+    if A.device.type == "cpu" and B.device.type == "cpu":
+        return fused_chol_solve_plain(A, B)
+    sfx = _build.suffix("fused_chol_solve", A, B)
+    n, m = A.shape[-1], B.shape[-1]
+    if (A.dim() < 2 or A.shape[-2] != n or B.shape[:-1] != A.shape[:-1]
+            or not 1 <= n <= 32 or not 1 <= m <= 32):
+        raise ValueError(f"fused_chol_solve: shapes {tuple(A.shape)}, "
+                         f"{tuple(B.shape)}")
+    Ac, Bc = A.contiguous(), B.contiguous()
+    X = torch.empty_like(Bc)
+    err = _fn("fused_chol_solve", sfx, 3, 3)(
+        Ac.data_ptr(), Bc.data_ptr(), X.data_ptr(), Ac.numel() // (n * n),
+        n, m, torch.cuda.current_stream(A.device).cuda_stream)
+    _build.check(err, "fused_chol_solve")
+    fused_chol_solve.launches += 1
+    return X
+
+
+fused_chol_solve.launches = 0

@@ -19,21 +19,26 @@ per-lane ``(B,)`` tensors, and the per-lane ``lax.while_loop`` is a Python
 loop whose finished lanes are frozen by ``torch.where`` (the select a
 batched ``while_loop`` applies), so results do not depend on the batch.
 
-Two factorization routes are ported (``factorize``), each with CUDA
+Three factorization routes are ported (``factorize``), each with CUDA
 kernels on the card and their plain PyTorch versions on the CPU:
 
-  * ``kkt_solver="scan"`` (the batched sweep): the whole KKT factor in one
-    ``cuda_fused.fused_factor``, the block-tridiagonal solves in
-    ``cuda_kkt.tridiag_solve``;
-  * ``kkt_solver="pcr"`` (single-lane replanning): H built here
-    (``build_H``), factored by ``cuda_kkt.chol``, H^-1 E', H^-1 F' by
-    ``cuda_kkt.cho_solve``, and the block-tridiagonal Schur system by
-    parallel cyclic reduction (``_pcr_factor`` / ``_pcr_solve``, plain
-    ``torch.linalg`` like the JAX package's XLA ``smallla`` there, but
-    always in float64, where the JAX package reduces in the problem's
-    dtype: see ``_pcr_factor``).
+  * ``kkt_solver="scan"`` without rank-one quadratic rows (the batched
+    sweep): the whole KKT factor in one ``cuda_fused.fused_factor``, the
+    block-tridiagonal solves in ``cuda_kkt.tridiag_solve``;
+  * ``kkt_solver="scan"`` with rank-one quadratic rows (``Q_r1``, a model's
+    ``penalized_dirs``): the unfused factorization (``_factorize_unfused``)
+    with the block-tridiagonal Schur system factored by
+    ``cuda_kkt.tridiag_factor`` and solved by ``cuda_kkt.tridiag_solve``;
+  * ``kkt_solver="pcr"`` (single-lane replanning): the same unfused
+    factorization with the Schur system reduced by parallel cyclic
+    reduction (``_pcr_factor`` / ``_pcr_solve``, plain ``torch.linalg``
+    like the JAX package's XLA ``smallla`` there, but always in float64,
+    where the JAX package reduces in the problem's dtype: see
+    ``_pcr_factor``).
 
-Both solve the stage Hessian with ``cuda_kkt.cho_solve_vec``.
+The unfused factorization builds H here (``build_H``), factors it by
+``cuda_kkt.chol`` and forms H^-1 E', H^-1 F' by ``cuda_kkt.cho_solve``.
+Every route solves the stage Hessian with ``cuda_kkt.cho_solve_vec``.
 """
 
 from __future__ import annotations
@@ -57,10 +62,6 @@ ConeVec = Dict[str, torch.Tensor]
 
 _NO_KSHARDED = ("the cross-device 'ksharded' KKT backend is not ported yet "
                 "(ROADMAP.md Queue 1 item 8, multi-device)")
-_NO_SCAN_R1 = ("the unfused 'scan' factorization (rank-one quadratic rows "
-               "Q_r1) needs the block-tridiagonal factor kernel, not ported "
-               "yet (ROADMAP.md Queue 2, kernel 5 tridiag_factor); use "
-               "kkt_solver='pcr'")
 
 
 class KKTFactors(NamedTuple):
@@ -155,11 +156,13 @@ def factorize(d: StageSOCP, W, cfg: IPMConfig) -> KKTFactors:
     if cfg.kkt_solver == "ksharded":
         raise NotImplementedError(_NO_KSHARDED)
     if cfg.kkt_solver == "pcr":
-        return _factorize_unfused(d, W, cfg)
+        return _factorize_unfused(d, W, cfg, _pcr_factor)
     if cfg.kkt_solver != "scan":
         raise ValueError(f"unknown kkt_solver {cfg.kkt_solver!r}")
     if d.Q_r1.shape[2]:
-        raise NotImplementedError(_NO_SCAN_R1)
+        # the fused kernel has no rank-one rows: the JAX package takes the
+        # unfused route here too
+        return _factorize_unfused(d, W, cfg, cuda_kkt.tridiag_factor)
     nx = d.c_p.shape[-1]
     reg = cfg.static_reg
 
@@ -175,9 +178,12 @@ def factorize(d: StageSOCP, W, cfg: IPMConfig) -> KKTFactors:
                                   (Ltri, Ctri))
 
 
-def _factorize_unfused(d: StageSOCP, W, cfg: IPMConfig) -> KKTFactors:
+def _factorize_unfused(d: StageSOCP, W, cfg: IPMConfig,
+                       schur_factor) -> KKTFactors:
     """H built and factored block by block, the Schur system M = A H^-1 A'
-    formed with matrix products and factored by PCR (``kkt_solver="pcr"``)."""
+    formed with matrix products (diagonal blocks D, couplings O) and
+    factored by ``schur_factor(D, O)``: ``_pcr_factor`` (``"pcr"``) or the
+    block Cholesky ``cuda_kkt.tridiag_factor`` (``"scan"``)."""
     nx = d.c_p.shape[-1]
     reg = cfg.static_reg
     H, d_p, d_q, h_sig = build_H(d, W, reg)
@@ -193,7 +199,7 @@ def _factorize_unfused(d: StageSOCP, W, cfg: IPMConfig) -> KKTFactors:
     D = d.E @ XE + d.F @ XF + torch.diag_embed(diag_pq)
     O = d.F[:, :-1] @ XE[:, 1:]      # M[k, k+1] = F_k Hw_{k+1}^-1 E_{k+1}'
     return _with_sherman_morrison(d, cfg, chol_Hw, d_p, d_q, h_sig,
-                                  _pcr_factor(D, O))
+                                  schur_factor(D, O))
 
 
 def _with_sherman_morrison(d, cfg, chol_Hw, d_p, d_q, h_sig, tri) -> KKTFactors:

@@ -265,8 +265,13 @@ def scvx_iteration(model: Model, params, cfg: SolverConfig, st: ScvxState,
         obj_lin = obj_lin - s.w_mass * X_new[:, -1, model.mass_index]
     J_lin = obj_lin + scale * (s.w_nu * nu_l1 + s.w_feas * t_sum)
     if s.tr_mode == "soft":
-        J_lin = J_lin + 0.5 * (lane_sum(d.Q_w * sol.x.w ** 2)
-                               + d.Q_sig * sol.x.sig ** 2)
+        # the damping (and the penalized directions) the step pays is part of
+        # the cost the subproblem minimized, so of the predicted cost
+        q_cost = 0.5 * (lane_sum(d.Q_w * sol.x.w ** 2)
+                        + d.Q_sig * sol.x.sig ** 2)
+        if d.Q_r1.shape[2]:
+            q_cost = q_cost + 0.5 * lane_sum((d.Q_r1 @ sol.x.w[..., None]) ** 2)
+        J_lin = J_lin + q_cost
 
     predicted = J_cur - J_lin
     actual = J_cur - J_new

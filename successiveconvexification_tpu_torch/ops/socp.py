@@ -14,6 +14,7 @@ p/q/t orthants and the dsigma rows.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -33,7 +34,7 @@ class StageSOCP(NamedTuple):
     c_sig: torch.Tensor    # (B,)
     Q_w: torch.Tensor      # (B, K, nw) diagonal quadratic weights
     Q_sig: torch.Tensor    # (B,)
-    Q_r1: torch.Tensor     # (B, K, 0, nw) rank-one rows (none in shipped models)
+    Q_r1: torch.Tensor     # (B, K, n_dirs, nw) rank-one rows (model.penalized_dirs)
     G_lin: torch.Tensor    # (B, K, nl, nw)
     h_lin: torch.Tensor    # (B, K, nl)
     G_socs: Tuple[torch.Tensor, ...]  # each (B, K, d_i, nw); last = trust region
@@ -155,7 +156,14 @@ def assemble(model: Model, cfg: ScvxConfig, params, disc: Discretization,
         lam = pscale / tr_radius
         Q_w[..., : nrx + nu] = cfg.soft_tr_weight * lam[:, None, None]
         Q_sig = cfg.soft_tr_sigma_weight * lam
-    Q_r1 = zeros(Bn, K, 0, nw)
+    # the model's penalized directions as rank-one rows, scaled so that H
+    # gets w_dir_penalty v v'
+    if model.penalized_dirs is not None:
+        dirs = reduce_cols(model.penalized_dirs(pk, X, U))
+        dirs = torch.cat([dirs, zeros(*dirs.shape[:-1], 1)], dim=-1)  # t column
+        Q_r1 = math.sqrt(cfg.w_dir_penalty) * dirs
+    else:
+        Q_r1 = zeros(Bn, K, 0, nw)
 
     # pins (reduced coordinates)
     free_w = torch.ones((Bn, K, nw), dtype=dtype, device=device)
@@ -172,6 +180,7 @@ def assemble(model: Model, cfg: ScvxConfig, params, disc: Discretization,
 
     G_lin = G_lin * free_w[:, :, None, :]
     G_socs = tuple(G * free_w[:, :, None, :] for G in G_socs)
+    Q_r1 = Q_r1 * free_w[:, :, None, :]
     E = E * free_w[:, :-1, None, :]
     F = F * free_w[:, 1:, None, :]
     G_sig = G_sig * free_sig[:, None]

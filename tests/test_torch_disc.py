@@ -167,7 +167,7 @@ def test_kernel_wrapper_refuses(case):
         cuda_disc.discretize_lanes(model, case["pt"], case["X"].float(),
                                    case["U"], case["sig"], SUBSTEPS)
     bare = dataclasses.replace(model, name="rocket6dof_bare",
-                               cuda_params=None)
+                               cuda_dynamics=None)
     with pytest.raises(ValueError, match="rocket6dof_bare"):
         cuda_disc.discretize_lanes(bare, *args)
     assert cuda_disc.discretize_lanes.launches == 0
@@ -188,7 +188,7 @@ def test_discretize_off_the_cpu_never_falls_back(case, monkeypatch):
     with pytest.raises(ValueError, match="meta"):
         tdisc.discretize(model, *args)
     bare = dataclasses.replace(model, name="rocket6dof_bare",
-                               cuda_params=None)
+                               cuda_dynamics=None)
     with pytest.raises(ValueError, match="rocket6dof_bare"):
         tdisc.discretize(bare, *args)
     assert cuda_disc.discretize_lanes.launches == 0

@@ -2,9 +2,9 @@
 
 Every input is made with numpy from a seed (or computed by the JAX package
 from such inputs) and handed to both packages as numpy arrays; f64, small
-sizes (K=6, B=3). On the CPU the three kernel wrappers run their plain
-PyTorch versions, which are what the CUDA kernels are held to on the card
-(``chip_smoke.py`` and ``tests/test_torch_cuda.py``).
+sizes (K=6, B=3). On the CPU the kernel wrappers run their plain PyTorch
+versions, which are what the CUDA kernels are held to on the card
+(``chip_smoke.py``).
 """
 
 import dataclasses
@@ -21,6 +21,7 @@ from successiveconvexification_tpu.models import rocket6dof as jrk
 from successiveconvexification_tpu.ops import cones as jC
 from successiveconvexification_tpu.ops import equilibrate as jeq
 from successiveconvexification_tpu.ops import ipm as jipm
+from successiveconvexification_tpu.ops import pallas_kkt
 from successiveconvexification_tpu.ops import smallla as jla
 from successiveconvexification_tpu.ops import socp as jsocp
 from successiveconvexification_tpu.ops.discretize import discretize as jdiscretize
@@ -245,6 +246,28 @@ def test_cho_solve_vec_plain_matches_jax():
     _close(xt, xj, 1e-10, 1e-12, "x")
 
 
+def test_fused_chol_solve_plain_matches_pallas():
+    """``cuda_kkt.fused_chol_solve`` on CPU tensors (its plain version: chol
+    then cho_solve, which the CUDA kernel is held to on the card) against
+    the TPU kernel ``pallas_kkt.fused_chol_solve`` run in interpret mode,
+    at the JAX test vehicle's n=13, m=2 (N=40 blocks, where the vehicle has
+    300, to keep the interpreted kernel short); f64 round-off, rtol 1e-10.
+    A block that is not positive definite comes out entirely NaN."""
+    rng = np.random.default_rng(10)
+    A = _spd_blocks(rng, (40,), 13)
+    R = rng.standard_normal((40, 13, 2))
+    Xj = pallas_kkt.fused_chol_solve(jnp.asarray(A), jnp.asarray(R),
+                                     interpret=True)
+    X = cuda_kkt.fused_chol_solve(_t(A), _t(R))
+    assert cuda_kkt.fused_chol_solve.launches == 0
+    _close(X, Xj, 1e-10, 1e-12, "X")
+    A[5] -= (np.linalg.eigvalsh(A[5])[0] + 1.0) * np.eye(13)
+    Xb = cuda_kkt.fused_chol_solve(_t(A), _t(R)).numpy()
+    assert np.isnan(Xb[5]).all()
+    np.testing.assert_array_equal(np.delete(Xb, 5, 0),
+                                  np.delete(X.numpy(), 5, 0))
+
+
 def test_wrappers_launch_or_raise():
     """Off the CPU a wrapper launches its kernel or raises; it never falls
     back to the plain version (a 'meta' tensor is neither CPU nor CUDA)."""
@@ -254,6 +277,10 @@ def test_wrappers_launch_or_raise():
         cuda_kkt.cho_solve_vec(L, b)
     with pytest.raises(ValueError):
         cuda_kkt.tridiag_solve(L[None], L[None], b[None])
+    with pytest.raises(ValueError):
+        cuda_kkt.tridiag_factor(L[None], L[None, :1])
+    with pytest.raises(ValueError):
+        cuda_kkt.fused_chol_solve(L, L)
     G = torch.zeros(1, 3, 4, 5, dtype=F64, device="meta")
     with pytest.raises(ValueError):
         cuda_fused.fused_factor(G, G[..., 0], G[..., 0], G[..., :1, 0],

@@ -274,16 +274,35 @@ def test_pcr_route_matches_scan_route(kkt_system):
 
 
 def test_unported_factorizations_raise(kkt_system):
-    """``ksharded`` (multi-device) and the unfused ``scan`` route (reached
-    only with rank-one quadratic rows) are not ported: they raise, and never
-    run a plain version."""
+    """``ksharded`` (multi-device) is not ported: it raises, and never runs
+    a plain version."""
     dd, W, _, _, _ = kkt_system
     with pytest.raises(NotImplementedError, match="ksharded"):
         tipm.factorize(dd, W, IPMConfig(kkt_solver="ksharded"))
+
+
+def test_scan_route_with_rank_one_rows_matches_pcr(kkt_system):
+    """With a rank-one quadratic row a node (``Q_r1``) the ``scan`` route
+    factors without the fused kernel, the Schur system by the block
+    Cholesky (``cuda_kkt.tridiag_factor``), and solves the same KKT system
+    as the ``pcr`` route: at static_reg 1e-6, where both certify (ROADMAP
+    Queue 3), the refined solutions agree to 1e-8 of their scale."""
+    dd, W, bx, by, bz = kkt_system
+    rng = np.random.default_rng(31)
     nw = dd.c_w.shape[-1]
-    d_r1 = dd._replace(Q_r1=torch.zeros(B, K, 1, nw, dtype=F64))
-    with pytest.raises(NotImplementedError, match="kernel 5"):
-        tipm.factorize(d_r1, W, IPMConfig(kkt_solver="scan"))
+    d_r1 = dd._replace(Q_r1=_t(rng.standard_normal((B, K, 1, nw)))
+                       * dd.free_w[:, :, None, :])
+    out = []
+    for kkt in ("pcr", "scan"):
+        cfg = IPMConfig(kkt_solver=kkt, static_reg=1e-6)
+        f = tipm.factorize(d_r1, W, cfg)
+        out.append(tipm.solve_kkt_refined(d_r1, f, W, bx, by, bz, cfg))
+    (uxp, uyp, uzp), (uxs, uys, uzs) = out
+    for a, b_, name in ((uxp.w, uxs.w, "ux.w"), (uxp.sig, uxs.sig, "ux.sig"),
+                        (uyp, uys, "uy")):
+        _close(a, b_, 1e-8, 1e-8 * float(np.abs(_np(b_)).max()), name)
+    for k in uzs:
+        _close(uzp[k], uzs[k], 1e-8, 1e-8 * float(np.abs(_np(uzs[k])).max()), k)
 
 
 # ------------------------------------------------------------- discretize
