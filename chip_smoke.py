@@ -52,9 +52,9 @@ from beside this file and never imports JAX or the JAX package). Phases:
      tridiag_solve, whose warm IPM ends near optimality where conditioning
      is worst; replan path: the first IPM
      iteration of the cold solve and every call of the last replan
-     iteration; penalized path: chol, cho_solve and tridiag_factor, and
-     point-mass path: the fused route's three kernels, both as the main
-     path's kernels; chol and cho_solve block by block;
+     iteration; penalized path: chol, cho_solve, tridiag_factor and
+     tridiag_solve, and point-mass path: the fused route's three kernels,
+     both as the main path's kernels; chol and cho_solve block by block;
      fused_chol_solve on synthetic SPD batches at the vehicle's shape and at
      the penalized path's stage-Hessian shape), in float32 and float64: the
      kernel must be finite wherever success in its dtype is guaranteed, and
@@ -80,7 +80,9 @@ from beside this file and never imports JAX or the JAX package). Phases:
   5. each kernel's time at its path's shapes beside its bound, its plain
      version's time and, where one exists, one PyTorch library call's time
      (chol and cho_solve also at a B=256 batch of blocks, for the record;
-     fused_chol_solve at both of its phase-3 shapes); and the synchronized
+     fused_chol_solve at both of its phase-3 shapes; tridiag_solve also on
+     the penalized path, and it and fused_factor at the point mass's
+     shapes); and the synchronized
      wall of one ``discretize`` call at B=256 with the kernel against the
      same call with the plain version, median of 5.
 
@@ -1454,7 +1456,8 @@ def main() -> int:
         cfg_p = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True,
                          w_dir_penalty=PENALTY_W)
         pcaps = {name: Capture(cuda_kkt, name, PENALIZED_PER_COLD[name])
-                 for name in ("chol", "cho_solve", "tridiag_factor")}
+                 for name in ("chol", "cho_solve", "tridiag_factor",
+                              "tridiag_solve")}
         print(f"penalized path: {pmodel.name}, one penalized direction a node "
               f"(the unit thrust direction), w_dir_penalty {PENALTY_W:g}")
         outp, plaunches, _ = run_sweep(
@@ -1774,6 +1777,13 @@ def main() -> int:
                   for name, cap in rcaps.items()]
         timed.append(("tridiag_factor", pcaps["tridiag_factor"].first,
                       plaunches["tridiag_factor"], "penalized path"))
+        # the two redesigned kernels at their other paths' shapes, for the
+        # record: tridiag_solve on the penalized path, both at the point
+        # mass's (K=30, nrx=7)
+        timed.append(("tridiag_solve", pcaps["tridiag_solve"].first, None,
+                      "penalized path"))
+        timed += [(name, mcaps[name].first, None, "point-mass path")
+                  for name in ("fused_factor", "tridiag_solve")]
         timed.append((PM_DISC, mcap.first, mlaunches["discretize_lanes"],
                       "point-mass path"))
         # fused_chol_solve in float32: its vehicle's shape (the record; its

@@ -25,13 +25,28 @@
 //   Replaces pallas_kkt.py _tridiag_solve_fwd_kernel and
 //   _tridiag_solve_bwd_kernel (two launches plus an XLA-built shifted copy
 //   of C on the TPU). Bound on the H100: bytes (every L and C block read
-//   once, ~6 n^2 flops per block), and in practice the latency of the
-//   sequential sweep along N.
-//   Design: ONE launch does both sweeps. One warp per scenario lane; lane
-//   i of the warp owns row i (n <= 32). The triangular solves broadcast
-//   each solved entry with __shfl_sync. v stays in shared memory between
-//   the sweeps and is overwritten by u, so no intermediate goes through
-//   device memory.
+//   once, ~6 n^2 flops per block); what a lane waits on is the latency of
+//   its 2N dependent steps, each a chain of n divisions.
+//   Design: ONE launch does both sweeps, one warp a lane and one lane a
+//   CTA, so B=256 lanes spread over all 132 SMs (n <= 32; the models' 13
+//   and 7 compiled in, other widths bounded by 32). The lane's L and C
+//   blocks (and r) go to shared memory in chunks of 4 nodes by cp.async
+//   (element-sized copies, see async.cuh), each chunk with an mbarrier the
+//   sweep waits on, issued two chunks ahead: the forward sweep starts when
+//   the first chunk lands. Where the lane's blocks fit with room for two
+//   CTAs an SM (float32 at the main path: 2 x 33 KB), each chunk keeps its
+//   slot and the backward sweep reads them again from shared memory;
+//   otherwise (float64 there) three slots are refilled, forward then
+//   backward. At each node lane i forms row i of the coupled right-hand
+//   side (its C row or column prefetched into registers a node ahead), the
+//   warp shares the n values by shuffles, and every lane runs the whole
+//   triangular solve with L_k read from shared memory by all lanes alike:
+//   the chain of divisions has no shuffle and no divergent branch in it.
+//   Every value takes the first design's operations in their order (t
+//   ascending in the C products, j ascending forward and descending
+//   backward, a true division by the diagonal), so the results are its
+//   results bit for bit: the f64 card-vs-CPU gate of the penalized path
+//   has no margin against a change of summation order.
 //
 // ---------------------------------------------------------------------------
 // chol: lower Cholesky factor of N independent n x n SPD blocks.
@@ -109,11 +124,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async.cuh"
 #include "blocktri.cuh"
 
 namespace {
-
-constexpr int kMaxN = 32;
 
 template <typename T>
 __global__ void cho_solve_vec_kernel(const T* __restrict__ L,
@@ -138,157 +152,185 @@ __global__ void cho_solve_vec_kernel(const T* __restrict__ L,
   for (int r = 0; r < n; ++r) xi[r] = y[r];
 }
 
-template <typename T>
-__global__ void tridiag_solve_kernel(const T* __restrict__ L,
-                                     const T* __restrict__ C,
-                                     const T* __restrict__ r,
-                                     T* __restrict__ u, int B, int N, int n) {
-  extern __shared__ unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int warp = threadIdx.x / 32;
-  const int li = threadIdx.x % 32;
-  const int lane_b = blockIdx.x * (blockDim.x / 32) + warp;
-  if (lane_b >= B) return;  // the whole warp leaves together
+// Column lc of an n x n row-major block in shared memory.
+template <typename T, int NMAX>
+__device__ __forceinline__ void load_col(const T* M, int n, int lc,
+                                         T (&out)[NMAX]) {
+#pragma unroll
+  for (int t = 0; t < NMAX; ++t) out[t] = t < n ? M[t * n + lc] : T(0);
+}
+
+// Row lc of an n x n row-major block in shared memory.
+template <typename T, int NMAX>
+__device__ __forceinline__ void load_row(const T* M, int n, int lc,
+                                         T (&out)[NMAX]) {
+#pragma unroll
+  for (int t = 0; t < NMAX; ++t) out[t] = t < n ? M[lc * n + t] : T(0);
+}
+
+// Entry li of a register array (li < NMAX).
+template <typename T, int NMAX>
+__device__ __forceinline__ T pick(const T (&x)[NMAX], int li) {
+  T out = x[0];
+#pragma unroll
+  for (int t = 1; t < NMAX; ++t)
+    if (t == li) out = x[t];
+  return out;
+}
+
+// One warp a lane, one lane a CTA (see the note at the top). Slot layout:
+// the chunk's L blocks, its C blocks, its r rows. `resident`: every chunk
+// has its own slot; otherwise three slots are refilled two chunks ahead,
+// forward in the forward sweep and backward in the backward one (which
+// does not use r).
+// NMAX: n when EXACT, else its bound, 32 (the launch dispatches).
+template <typename T, int NMAX, bool EXACT>
+__global__ void __launch_bounds__(32)
+    tridiag_solve_kernel(const T* __restrict__ L, const T* __restrict__ C,
+                         const T* __restrict__ r, T* __restrict__ u, int N,
+                         int n, int ch, int nslots, int resident) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (EXACT) n = NMAX;
   const unsigned full = 0xffffffffu;
+  const int li = threadIdx.x;
+  const int lane_b = blockIdx.x;
   const bool act = li < n;
-  T* v = smem + (size_t)warp * N * n;
+  const int lc = act ? li : 0;  // lanes >= n read row 0 and write nothing
   const size_t nn = (size_t)n * n;
+  const size_t v_off = align16((size_t)nslots * sizeof(uint64_t));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  T* vs = reinterpret_cast<T*>(smem_raw + v_off);  // v_k, row i by lane i
+  T* ring = reinterpret_cast<T*>(
+      smem_raw + v_off + align16((size_t)N * n * sizeof(T)));
+  const size_t slot_elems = (size_t)ch * (2 * nn + n);
   const T* Lb = L + (size_t)lane_b * N * nn;
   const T* Cb = C + (size_t)lane_b * N * nn;
   const T* rb = r + (size_t)lane_b * N * n;
   T* ub = u + (size_t)lane_b * N * n;
+  const int nc = (N + ch - 1) / ch;
+  // the copy sequence: chunks 0..nc-1, then (streaming) nc-1..0 again
+  const int nseq = resident ? nc : 2 * nc;
+
+  if (li == 0)
+    for (int s = 0; s < nslots; ++s) mbar_init(&bar[s], 32);
+  mbar_fence_init();
+  __syncwarp();
+
+  auto issue = [&](int s) {
+    if (s >= nseq) return;
+    const int c = s < nc ? s : 2 * nc - 1 - s;
+    const int k0 = c * ch;
+    const int blk = min(ch, N - k0) * (int)nn;
+    T* sl = ring + (size_t)(s % nslots) * slot_elems;
+    for (int i = li; i < blk; i += 32) {
+      cp_async_elem(sl + i, Lb + k0 * nn + i);
+      cp_async_elem(sl + ch * nn + i, Cb + k0 * nn + i);
+    }
+    if (s < nc) {
+      const int nr = min(ch, N - k0) * n;
+      for (int i = li; i < nr; i += 32)
+        cp_async_elem(sl + 2 * ch * nn + i, rb + (size_t)k0 * n + i);
+    }
+    cp_async_mbar_arrive(&bar[s % nslots]);
+  };
 
   // forward sweep: L_k v_k = r_k - C_k' v_{k-1}
-  for (int k = 0; k < N; ++k) {
-    const T* Lk = Lb + k * nn;
-    T val = T(0);
-    if (act) {
-      val = rb[k * n + li];
+  T v[NMAX];  // v_{k-1}, then v_k, on every lane
+#pragma unroll
+  for (int t = 0; t < NMAX; ++t) v[t] = T(0);
+  issue(0);
+  issue(1);
+  for (int c = 0; c < nc; ++c) {
+    mbar_wait(&bar[c % nslots], (c / nslots) & 1);
+    __syncwarp();  // every lane is done with the slot issue(c + 2) refills
+    issue(c + 2);
+    const T* sl = ring + (size_t)(c % nslots) * slot_elems;
+    const int k0 = c * ch, cnt = min(ch, N - k0);
+    T cn[NMAX];  // column lc of the next node's C, prefetched
+    load_col<T, NMAX>(sl + ch * nn, n, lc, cn);
+    T rn = sl[2 * ch * nn + lc];
+    for (int i = 0; i < cnt; ++i) {
+      T cr[NMAX];
+#pragma unroll
+      for (int t = 0; t < NMAX; ++t) cr[t] = cn[t];
+      T val = rn;  // row lc of r_k - C_k' v_{k-1}
+      if (i + 1 < cnt) {
+        load_col<T, NMAX>(sl + (ch + i + 1) * nn, n, lc, cn);
+        rn = sl[2 * ch * nn + (i + 1) * n + lc];
+      }
+      const int k = k0 + i;
+      const T* Lk = sl + i * nn;
       if (k > 0) {
-        const T* Ck = Cb + k * nn;
-        const T* vp = v + (k - 1) * n;
-        for (int t = 0; t < n; ++t) val -= Ck[t * n + li] * vp[t];
+#pragma unroll
+        for (int t = 0; t < NMAX; ++t)
+          if (t < n) val -= cr[t] * v[t];
       }
+      T s[NMAX];
+#pragma unroll
+      for (int t = 0; t < NMAX; ++t)
+        s[t] = t < n ? __shfl_sync(full, val, t) : T(0);
+#pragma unroll
+      for (int j = 0; j < NMAX; ++j) {
+        if (j < n) {
+          v[j] = s[j] / Lk[j * n + j];
+#pragma unroll
+          for (int t = j + 1; t < NMAX; ++t)
+            if (t < n) s[t] -= Lk[t * n + j] * v[j];
+        }
+      }
+      if (act) vs[(size_t)k * n + li] = pick<T, NMAX>(v, li);
     }
-    for (int j = 0; j < n; ++j) {
-      if (li == j) val = val / Lk[j * n + j];
-      const T vj = __shfl_sync(full, val, j);
-      if (act && li > j) val -= Lk[li * n + j] * vj;
-    }
-    if (act) v[k * n + li] = val;
-    __syncwarp();
   }
+  __syncwarp();
 
-  // backward sweep: L_k' u_k = v_k - C_{k+1} u_{k+1}; u_k overwrites v_k
-  for (int k = N - 1; k >= 0; --k) {
-    const T* Lk = Lb + k * nn;
-    T val = T(0);
-    if (act) {
-      val = v[k * n + li];
+  // backward sweep: L_k' u_k = v_k - C_{k+1} u_{k+1}
+  T w[NMAX];      // u_{k+1}, then u_k, on every lane
+  T cnext[NMAX];  // row lc of C_{k+1}
+#pragma unroll
+  for (int t = 0; t < NMAX; ++t) w[t] = cnext[t] = T(0);
+  for (int s = nc; s < 2 * nc; ++s) {
+    const int c = 2 * nc - 1 - s;
+    int slot = c;
+    if (!resident) {
+      mbar_wait(&bar[s % nslots], (s / nslots) & 1);
+      __syncwarp();
+      issue(s + 2);
+      slot = s % nslots;
+    }
+    const T* sl = ring + (size_t)slot * slot_elems;
+    const int k0 = c * ch, cnt = min(ch, N - k0);
+    T cn[NMAX];  // row lc of the next (lower) node's C, prefetched
+    load_row<T, NMAX>(sl + (ch + cnt - 1) * nn, n, lc, cn);
+    for (int i = cnt - 1; i >= 0; --i) {
+      T cr[NMAX];
+#pragma unroll
+      for (int t = 0; t < NMAX; ++t) cr[t] = cn[t];
+      if (i > 0) load_row<T, NMAX>(sl + (ch + i - 1) * nn, n, lc, cn);
+      const int k = k0 + i;
+      const T* Lk = sl + i * nn;
+      T val = vs[(size_t)k * n + lc];  // row lc of v_k - C_{k+1} u_{k+1}
       if (k + 1 < N) {
-        const T* Cn = Cb + (k + 1) * nn;
-        const T* un = v + (k + 1) * n;
-        for (int t = 0; t < n; ++t) val -= Cn[li * n + t] * un[t];
+#pragma unroll
+        for (int t = 0; t < NMAX; ++t)
+          if (t < n) val -= cnext[t] * w[t];
       }
+      T s[NMAX];
+#pragma unroll
+      for (int t = 0; t < NMAX; ++t)
+        s[t] = t < n ? __shfl_sync(full, val, t) : T(0);
+#pragma unroll
+      for (int j = NMAX - 1; j >= 0; --j) {
+        if (j < n) {
+          w[j] = s[j] / Lk[j * n + j];
+#pragma unroll
+          for (int t = 0; t < j; ++t) s[t] -= Lk[j * n + t] * w[j];
+        }
+      }
+      if (act) ub[(size_t)k * n + li] = pick<T, NMAX>(w, li);
+#pragma unroll
+      for (int t = 0; t < NMAX; ++t) cnext[t] = cr[t];
     }
-    for (int j = n - 1; j >= 0; --j) {
-      if (li == j) val = val / Lk[j * n + j];
-      const T uj = __shfl_sync(full, val, j);
-      if (act && li < j) val -= Lk[j * n + li] * uj;
-    }
-    __syncwarp();
-    if (act) {
-      v[k * n + li] = val;
-      ub[k * n + li] = val;
-    }
-    __syncwarp();
   }
-}
-
-template <typename T>
-__device__ __forceinline__ T quiet_nan();
-template <>
-__device__ __forceinline__ float quiet_nan<float>() {
-  return __int_as_float(0x7fc00000);
-}
-template <>
-__device__ __forceinline__ double quiet_nan<double>() {
-  return __longlong_as_double(0x7ff8000000000000LL);
-}
-
-// In-place lower Cholesky of the n x n row-major block `a` in shared memory
-// by the whole warp (lane li), left-looking, column by column; the upper
-// triangle is not read. Returns true (on every lane) when a pivot is <= 0
-// or not finite; `a` then holds garbage.
-template <typename T>
-__device__ bool warp_chol(T* a, int n, int li) {
-  const unsigned full = 0xffffffffu;
-  bool bad = false;  // warp-uniform: every lane tests the same pivot
-  for (int j = 0; j < n; ++j) {
-    // lane i >= j: s_i = A[i][j] - sum_{k<j} L[i][k] L[j][k]; columns < j of
-    // the lower part of a already hold L
-    T s = T(0);
-    if (li >= j && li < n) {
-      s = a[li * n + j];
-      for (int k = 0; k < j; ++k) s -= a[li * n + k] * a[j * n + k];
-    }
-    const T piv = __shfl_sync(full, s, j);
-    bad = bad || !(piv > T(0)) || isinf(piv);
-    const T d = sqrt(piv);
-    // lane i only rewrites its own entry of column j, which no other lane
-    // reads in this step
-    if (li == j) {
-      a[j * n + j] = d;
-    } else if (li > j && li < n) {
-      a[li * n + j] = s / d;
-    }
-    __syncwarp();
-  }
-  return bad;
-}
-
-// Copy the lower triangle of the n x n block `src` into `a` (coalesced).
-template <typename T>
-__device__ __forceinline__ void warp_load_lower(const T* src, T* a, int n,
-                                                int li) {
-  for (int t = li; t < n * n; t += 32) {
-    const int r = t / n, c = t - r * n;
-    if (c <= r) a[t] = src[t];
-  }
-}
-
-// Write the factor in `a` to `dst` with zeros above the diagonal, or NaN
-// everywhere when `bad`.
-template <typename T>
-__device__ __forceinline__ void warp_store_factor(const T* a, T* dst, int n,
-                                                  bool bad, int li) {
-  const T nan = quiet_nan<T>();
-  for (int t = li; t < n * n; t += 32) {
-    const int r = t / n, c = t - r * n;
-    dst[t] = bad ? nan : (c <= r ? a[t] : T(0));
-  }
-}
-
-// Lane li < m solves (l l') x = b for column li of the n x m row-major
-// right-hand side; l (lower, in shared memory) is read by every lane alike.
-template <typename T>
-__device__ __forceinline__ void lane_cho_solve_col(const T* l, const T* Bb,
-                                                   T* Xb, int n, int m,
-                                                   int li) {
-  T y[kMaxN];
-  // forward: L y = b
-  for (int r = 0; r < n; ++r) {
-    T s = Bb[r * m + li];
-    for (int k = 0; k < r; ++k) s -= l[r * n + k] * y[k];
-    y[r] = s / l[r * n + r];
-  }
-  // backward: L' x = y
-  for (int r = n - 1; r >= 0; --r) {
-    T s = y[r];
-    for (int k = r + 1; k < n; ++k) s -= l[k * n + r] * y[k];
-    y[r] = s / l[r * n + r];
-  }
-  for (int r = 0; r < n; ++r) Xb[r * m + li] = y[r];
 }
 
 template <typename T>
@@ -471,21 +513,57 @@ int launch_cho_solve_vec(const void* L, const void* b, void* x, int N, int n,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int NMAX, bool EXACT>
+int launch_tridiag_solve_n(const void* L, const void* C, const void* r,
+                           void* u, int B, int N, int n, void* stream) {
+  const size_t nn = (size_t)n * n;
+  const size_t per_node = (2 * nn + n) * sizeof(T);
+  const size_t v_bytes = align16((size_t)N * n * sizeof(T));
+  auto smem_of = [&](int nslots, int ch) {
+    return align16((size_t)nslots * sizeof(uint64_t)) + v_bytes +
+           (size_t)nslots * ch * per_node;
+  };
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  // every chunk its own slot where that leaves room for two CTAs an SM;
+  // else a ring of three slots of as many nodes (at most 4) as fit
+  int ch = 4, resident = 1;
+  int nslots = (N + ch - 1) / ch;
+  size_t smem = smem_of(nslots, ch);
+  if (smem > kTwoPerSm) {
+    resident = 0;
+    nslots = 3;
+    while (ch > 1 && smem_of(nslots, ch) > kTwoPerSm) --ch;
+    smem = smem_of(nslots, ch);
+    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  }
+  err = cudaFuncSetAttribute(tridiag_solve_kernel<T, NMAX, EXACT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  tridiag_solve_kernel<T, NMAX, EXACT><<<B, 32, smem,
+                                         (cudaStream_t)stream>>>(
+      (const T*)L, (const T*)C, (const T*)r, (T*)u, N, n, ch, nslots,
+      resident);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_tridiag_solve(const void* L, const void* C, const void* r, void* u,
                          int B, int N, int n, void* stream) {
-  if (n < 1 || n > 32 || N < 1 || B < 0) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kMaxN || N < 1 || B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  const size_t per_warp = (size_t)N * n * sizeof(T);
-  const size_t limit = 48 * 1024;
-  if (per_warp > limit) return (int)cudaErrorInvalidValue;
-  int warps = 4;
-  while (warps > 1 && warps * per_warp > limit) --warps;
-  const int blocks = (B + warps - 1) / warps;
-  tridiag_solve_kernel<T><<<blocks, warps * 32, warps * per_warp,
-                            (cudaStream_t)stream>>>(
-      (const T*)L, (const T*)C, (const T*)r, (T*)u, B, N, n);
-  return (int)cudaGetLastError();
+  // the models' widths (the rocket's nrx = 13, the point mass's 7) get
+  // kernels with n compiled in; other widths the one bounded by 32
+  if (n == 13)
+    return launch_tridiag_solve_n<T, 13, true>(L, C, r, u, B, N, n, stream);
+  if (n == 7)
+    return launch_tridiag_solve_n<T, 7, true>(L, C, r, u, B, N, n, stream);
+  return launch_tridiag_solve_n<T, kMaxN, false>(L, C, r, u, B, N, n, stream);
 }
 
 }  // namespace

@@ -4,7 +4,12 @@ Each ``csrc/*.cu`` file has a plain C interface and becomes one shared
 library under ``build/`` at the repository root, compiled on first use:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -split-compile=0 -o build/<name>-<hash>.so \
+         csrc/<name>.cu
+
+(``-split-compile=0`` lets nvcc optimize a file's kernels on every core:
+``fused_factor.cu``, one kernel per model width and type, took 69 s alone
+and 41 s with it on the H100 machine.)
 
 The file name carries a hash of the source and of the shared headers
 (``csrc/*.cuh``), so an edited source or header is rebuilt.
@@ -27,7 +32,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 SOURCES = ("kkt", "fused_factor", "disc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-split-compile=0", "-Xptxas",
+              "-v")
 
 _LIBS: dict = {}
 

@@ -14,8 +14,9 @@ factors (L, C) of the Schur system D_k = E_k H_k^-1 E_k' + F_k H_{k+1}^-1 F_k'
 ranges — the JAX package kept it in a module-global side channel.
 
 The wrapper launches the kernel on CUDA tensors (or raises) and uses the
-plain PyTorch version on CPU tensors. ``fused_factor.launches`` counts the
-kernel launches.
+plain PyTorch version on CPU tensors. The kernel takes nw, nrx <= 32 (one
+warp lane a row); wider blocks raise on the card. ``fused_factor.launches``
+counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -67,6 +68,9 @@ def fused_factor(G_cat, wrow, uv, ucoef, hdiag, E, F, dpq, soc_ranges):
         raise ValueError("fused_factor: inconsistent shapes "
                          f"{[tuple(t.shape) for t in ins]}, soc_ranges "
                          f"{tuple(soc_ranges.shape)} {soc_ranges.dtype}")
+    if nw > 32 or nrx > 32:
+        raise ValueError(f"fused_factor: nw={nw}, nrx={nrx}; the kernel "
+                         "takes blocks of at most 32 (a warp's lanes)")
     ins = [t.contiguous() for t in ins]
     rng = soc_ranges.contiguous()
     chol_Hw = torch.empty((B, K, nw, nw), dtype=dtype, device=dev)

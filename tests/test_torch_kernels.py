@@ -21,7 +21,7 @@ from successiveconvexification_tpu.models import rocket6dof as jrk
 from successiveconvexification_tpu.ops import cones as jC
 from successiveconvexification_tpu.ops import equilibrate as jeq
 from successiveconvexification_tpu.ops import ipm as jipm
-from successiveconvexification_tpu.ops import pallas_kkt
+from successiveconvexification_tpu.ops import pallas_fused, pallas_kkt
 from successiveconvexification_tpu.ops import smallla as jla
 from successiveconvexification_tpu.ops import socp as jsocp
 from successiveconvexification_tpu.ops.discretize import discretize as jdiscretize
@@ -234,6 +234,53 @@ def test_tridiag_solve_plain_matches_jax():
     _close(Ct, Cj, 1e-10, 1e-12, "C")
     ut = cuda_kkt.tridiag_solve(_t(Lj), _t(Cj), _t(r))
     _close(ut, uj, 1e-10, 1e-12, "u")
+
+
+# the main path's widths, which the two redesigned kernels are tuned for:
+# K=50 nodes, R=38 H rows of nw=17, nrx=13 Schur rows, the rocket's cone
+# layout (3 linear rows, then cones of 3, 3, 4, 4, 4 and the 17-row trust
+# region)
+ROCKET_SOC_RANGES = ((3, 6), (6, 9), (9, 13), (13, 17), (17, 21), (21, 38))
+
+
+def test_fused_factor_plain_matches_jax_reference_at_main_widths():
+    """``fused_factor_plain`` (what csrc/fused_factor.cu is held to on the
+    card) against the JAX package's ``pallas_fused._reference_factor`` under
+    vmap, B=2, K=50, R=38, nw=17, nrx=13, f64 round-off (rtol 1e-10).
+    Positive row weights, cone coefficients and diagonals keep every H_k
+    and Schur block SPD."""
+    rng = np.random.default_rng(11)
+    Bm, Km, nw, nrx = 2, 50, 17, 13
+    R, S = ROCKET_SOC_RANGES[-1][1], len(ROCKET_SOC_RANGES)
+    args = (rng.standard_normal((Bm, Km, R, nw)),
+            0.5 + rng.random((Bm, Km, R)),
+            rng.standard_normal((Bm, Km, R)),
+            0.1 + rng.random((Bm, Km, S)),
+            0.1 + rng.random((Bm, Km, nw)),
+            rng.standard_normal((Bm, Km - 1, nrx, nw)),
+            rng.standard_normal((Bm, Km - 1, nrx, nw)),
+            0.1 + rng.random((Bm, Km - 1, nrx)))
+    ref = jax.vmap(lambda *a: pallas_fused._reference_factor(
+        *a, ROCKET_SOC_RANGES))(*map(jnp.asarray, args))
+    out = cuda_fused.fused_factor_plain(
+        *map(_t, args), torch.tensor(ROCKET_SOC_RANGES, dtype=torch.int32))
+    for name, t, j in zip(("chol_Hw", "L", "C"), out, ref):
+        _close(t, j, 1e-10, 1e-10 * float(np.abs(np.asarray(j)).max()), name)
+
+
+def test_tridiag_solve_plain_matches_jax_at_main_widths():
+    """``tridiag_solve_plain`` (what the tridiag_solve kernel is held to)
+    against JAX's ``smallla.blocktridiag_solve`` at N=49, n=13, B=2, f64
+    round-off (rtol 1e-10)."""
+    rng = np.random.default_rng(12)
+    N, n = 49, 13
+    D = _spd_blocks(rng, (2, N), n)
+    O = 0.3 * rng.standard_normal((2, N - 1, n, n))
+    r = rng.standard_normal((2, N, n))
+    Lj, Cj = jax.vmap(jla.blocktridiag_factor)(jnp.asarray(D), jnp.asarray(O))
+    uj = jax.vmap(jla.blocktridiag_solve)(Lj, Cj, jnp.asarray(r))
+    ut = cuda_kkt.tridiag_solve_plain(_t(Lj), _t(Cj), _t(r))
+    _close(ut, uj, 1e-10, 1e-10 * float(np.abs(np.asarray(uj)).max()), "u")
 
 
 def test_cho_solve_vec_plain_matches_jax():
