@@ -52,8 +52,9 @@ from beside this file and never imports JAX or the JAX package). Phases:
      tridiag_solve, whose warm IPM ends near optimality where conditioning
      is worst; replan path: the first IPM
      iteration of the cold solve and every call of the last replan
-     iteration; penalized path: chol, cho_solve, tridiag_factor and
-     tridiag_solve, and point-mass path: the fused route's three kernels,
+     iteration, cho_solve_vec as well; penalized path: chol, cho_solve,
+     tridiag_factor, tridiag_solve and cho_solve_vec, and point-mass path:
+     the fused route's three kernels,
      both as the main path's kernels; chol and cho_solve block by block;
      fused_chol_solve on synthetic SPD batches at the vehicle's shape and at
      the penalized path's stage-Hessian shape), in float32 and float64: the
@@ -65,7 +66,13 @@ from beside this file and never imports JAX or the JAX package). Phases:
      of each replan run, a synthetic call with drag and a NaN lane, and the
      point-mass path's first and 10th calls and a NaN lane, each gated per
      lane and output (``check_disc``), with the gap between the kernel's
-     x_prop and the plain ``propagate``'s printed; the wrappers must refuse
+     x_prop and the plain ``propagate``'s printed; chol, fused_chol_solve
+     and tridiag_factor at an infinite and at a negative pivot (synthetic,
+     ``check_pivots``): non-finite exactly where the float64 plain version
+     on the CPU is (an infinite pivot factors on, as LAPACK's potrf does; a
+     negative one gives NaN, and in tridiag_factor NaN in every later block
+     of the lane), the rest within the forward gate or bit-equal to the
+     kernel's output without the special pivots; the wrappers must refuse
      what the kernels do not take;
   4. f64 on the card beside the same runs on the CPU with the plain
      versions (child processes, Ruiz on every solve): B=4 of the main path
@@ -82,6 +89,7 @@ from beside this file and never imports JAX or the JAX package). Phases:
      (chol and cho_solve also at a B=256 batch of blocks, for the record;
      fused_chol_solve at both of its phase-3 shapes; tridiag_solve also on
      the penalized path, and it and fused_factor at the point mass's
+     shapes; tridiag_factor also in float64; cho_solve_vec at every path's
      shapes); and the synchronized
      wall of one ``discretize`` call at B=256 with the kernel against the
      same call with the plain version, median of 5.
@@ -92,6 +100,9 @@ before them. Any failed phase exits
 non-zero without that line. ``--cpu-reference PATH CASE`` (CASE: main,
 penalized or pointmass) and ``--cpu-replan PATH`` (CPU only) and
 ``--card-plain-factor PATH`` are the child modes of phase 4.
+``--save-captures PATH`` runs every phase and also saves the captured
+inputs of tridiag_factor and cho_solve_vec (a few hundred MB) for
+``scripts/kernel_ab.py``.
 """
 
 from __future__ import annotations
@@ -954,6 +965,155 @@ GUARANTEED = {"fused_factor": _guaranteed_fused,
               "fused_chol_solve": _guaranteed_fcs}
 
 
+# Pivots at the edge of the breakdown test. LAPACK's potrf (the plain
+# versions' factor on the CPU, and the JAX package's) stops at a pivot <= 0
+# or NaN and factors on at an infinite one: an infinite diagonal entry at
+# (g, g), zeros below it, row g left of it as for any finite pivot (those
+# entries never read a_gg), and everything else the factor of the matrix
+# with row and column g deleted, operation for operation (the terms that
+# pass through column g are exact zeros). So the kernels are held to the
+# plain version run on the CPU: the same set of non-finite entries, the
+# deleted matrix's entries within the forward-error gate above (applied to
+# the deleted matrix), row g and every block or lane away from the special
+# ones bit-equal to the kernel's own output on the input without them. A
+# negative pivot still gives an all-NaN block, and in tridiag_factor every
+# later block of its lane too.
+# The cases: chol and fused_chol_solve on 8 blocks of n = 17, block 2 with
+# an infinite pivot in row PIVOT_ROW and block 5 indefinite; tridiag_factor
+# on a (B, N, n) batch, at one node lane 1 with an infinite pivot in row
+# PIVOT_ROW and lane 2 indefinite.
+PIVOT_ROW = 5
+TRIFAC_PIVOTS = (4, 6, 13, 3)   # tridiag_factor batch (B, N, n), node
+
+
+def _drop(X, g, axes):
+    """X without index g along each of ``axes``."""
+    import torch
+
+    for ax in axes:
+        keep = torch.tensor([i for i in range(X.shape[ax]) if i != g],
+                            device=X.device)
+        X = X.index_select(ax, keep)
+    return X
+
+
+def _same(a, b):
+    """Bit-equal up to NaN payloads (and the sign of zero)."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _finite_as(x, ref) -> bool:
+    """x is finite exactly where ref is."""
+    import torch
+
+    return torch.equal(torch.isfinite(x.cpu()), torch.isfinite(ref))
+
+
+def check_pivots(cuda_kkt):
+    """chol and fused_chol_solve (N=8 blocks of n=17, the stage Hessian's
+    width; 13 right-hand sides) and tridiag_factor (TRIFAC_PIVOTS) at an
+    infinite and at a negative pivot, in float32 and float64, against the
+    plain versions on the CPU, in float64 as phase 3's reference is; see
+    the note above. Returns {check: readings} and ok. A reading, not a
+    gate: whether the plain version run on the card in the kernel's dtype
+    is non-finite where the reference is (not every build of torch's
+    Cholesky factors on at an infinite pivot: the float32 one on the CPU of
+    an MKL build stops there at n = 6 and 13, not at 17)."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    f64 = torch.float64
+    n, j = 17, PIVOT_ROW
+    i_inf, i_neg = 2, 5
+    R = torch.randn(8, n, n, generator=g, dtype=f64)
+    A0 = R @ _T(R) + n * torch.eye(n, dtype=f64)
+    Bm = torch.randn(8, n, 13, generator=g, dtype=f64)
+    A = A0.clone()
+    A[i_inf, j, j] = float("inf")
+    A[i_neg] -= (torch.linalg.eigvalsh(A0[i_neg])[0] + 1.0) * torch.eye(n, dtype=f64)
+    B, N, nt, node = TRIFAC_PIVOTS
+    R = torch.randn(B * N, nt, nt, generator=g, dtype=f64)
+    D0 = (R @ _T(R) + 5 * torch.eye(nt, dtype=f64)).reshape(B, N, nt, nt) \
+        + 4.0 * nt * torch.eye(nt, dtype=f64)
+    O = 0.5 * torch.randn(B, N - 1, nt, nt, generator=g, dtype=f64)
+    D = D0.clone()
+    D[1, node, j, j] = float("inf")
+    D[2, node] -= (torch.linalg.eigvalsh(D0[2, node])[0] + 50.0) * torch.eye(nt, dtype=f64)
+    out, ok = {}, True
+    others = [i for i in range(8) if i not in (i_inf, i_neg)]
+    for dt in (torch.float32, f64):
+        tag = str(dt).split(".")[1]
+        a, a0, bm = A.to(dt), A0.to(dt), Bm.to(dt)
+        # chol
+        k = cuda_kkt.chol(a.cuda()).cpu()
+        k0 = cuda_kkt.chol(a0.cuda()).cpu()
+        p = cuda_kkt.chol_plain(a.double())
+        Ad, Kd, Pd = (_drop(X[i_inf].double(), j, (0, 1)) for X in (a, k, p))
+        fwd = float(_forward_chol((Ad[None],), (Pd[None],), (Kd[None],), dt).max())
+        good = (torch.equal(torch.isfinite(k), torch.isfinite(p))
+                and bool(torch.isnan(k[i_neg]).all())
+                and _same(k[others], k0[others])
+                and _same(k[i_inf, j, :j], k0[i_inf, j, :j])
+                and bool((k[i_inf, j + 1:, j] == 0).all())
+                and bool(torch.isinf(k[i_inf, j, j])) and fwd <= 1.0)
+        out[f"chol {tag}"] = {"fwd_kernel": fwd, "ok": good,
+                              "card_plain_as_cpu": _finite_as(
+                                  cuda_kkt.chol_plain(a.cuda()), p)}
+        ok &= good
+        # fused_chol_solve
+        x = cuda_kkt.fused_chol_solve(a.cuda(), bm.cuda()).cpu()
+        x0 = cuda_kkt.fused_chol_solve(a0.cuda(), bm.cuda()).cpu()
+        xp = cuda_kkt.fused_chol_solve_plain(a.double(), bm.double())
+        Ad = _drop(a.double()[i_inf], j, (0, 1))
+        Bd, Xd, Xpd = (_drop(X[i_inf].double(), j, (0,)) for X in (bm, x, xp))
+        fwd = float(_forward_fcs((Ad[None], Bd[None]), (Xpd[None],),
+                                 (Xd[None],), dt).max())
+        good = (torch.equal(torch.isfinite(x), torch.isfinite(xp))
+                and bool(torch.isnan(x[i_neg]).all())
+                and _same(x[others], x0[others])
+                and bool((x[i_inf, j] == 0).all()) and fwd <= 1.0)
+        out[f"fused_chol_solve {tag}"] = {
+            "fwd_kernel": fwd, "ok": good, "card_plain_as_cpu": _finite_as(
+                cuda_kkt.fused_chol_solve_plain(a.cuda(), bm.cuda()), xp)}
+        ok &= good
+        # tridiag_factor: lane 1 the infinite pivot, lane 2 the negative one
+        d, d0, o = D.to(dt), D0.to(dt), O.to(dt)
+        L, C = (t.cpu() for t in cuda_kkt.tridiag_factor(d.cuda(), o.cuda()))
+        L0, C0 = (t.cpu() for t in cuda_kkt.tridiag_factor(d0.cuda(), o.cuda()))
+        Lp, Cp = cuda_kkt.tridiag_factor_plain(d.double(), o.double())
+        gg = node * nt + j   # the infinite pivot's row in the dense factor
+        args64 = (d[1:2].double(), o[1:2].double())
+        den_d, den_o = _trifac_den(args64, Lp[1:2], Cp[1:2])
+        den = _drop(_dense(den_d, _T(den_o), sym=True), gg, (1, 2))
+        Lr = _drop(_dense(Lp[1:2], _T(Cp[1:2, 1:]), sym=False), gg, (1, 2))
+        Lk = _drop(_dense(L[1:2].double(), _T(C[1:2, 1:].double()), sym=False),
+                   gg, (1, 2))
+        tol = _chol_forward(Lr, _both(2 * nt + 2, dt) * den)
+        fwd = float(_omega(torch.tril(Lk - Lr), torch.tril(tol)).max())
+        good = (torch.equal(torch.isfinite(L), torch.isfinite(Lp))
+                and torch.equal(torch.isfinite(C), torch.isfinite(Cp))
+                and bool(torch.isnan(L[2, node:]).all())
+                and bool(torch.isnan(C[2, node + 1:]).all())
+                and _same(L[2, :node], L0[2, :node])
+                and _same(C[2, :node + 1], C0[2, :node + 1])
+                and _same(L[[0, 3]], L0[[0, 3]]) and _same(C[[0, 3]], C0[[0, 3]])
+                and _same(L[1, :node], L0[1, :node])
+                and _same(C[1, :node + 1], C0[1, :node + 1])
+                and _same(L[1, node, j, :j], L0[1, node, j, :j])
+                and bool((L[1, node, j + 1:, j] == 0).all())
+                and bool((C[1, node + 1, j] == 0).all())
+                and bool(torch.isinf(L[1, node, j, j])) and fwd <= 1.0)
+        out[f"tridiag_factor {tag}"] = {
+            "fwd_kernel": fwd, "ok": good, "card_plain_as_cpu": _finite_as(
+                cuda_kkt.tridiag_factor_plain(d.cuda(), o.cuda())[0], Lp)}
+        ok &= good
+    torch.cuda.synchronize()
+    return out, bool(ok)
+
+
 def check_call(name, args, kernel, plain):
     """Hold one captured call of a kernel against its plain version.
 
@@ -1084,7 +1244,10 @@ def _time_ms(fn, reps: int = 20) -> float:
     warm-up. A spin kernel holds the stream while the host enqueues the
     calls, so the events time the device's work back to back and not the
     host's launch overhead (a ctypes launch costs tens of microseconds of
-    host time, more than the smallest kernel here runs)."""
+    host time, more than the smallest kernel here runs). If enqueueing
+    took longer than the spin (a busy host: phase 4's CPU runs share it),
+    the device idled between calls, and the reading is taken again with a
+    spin twice that long."""
     import torch
 
     for _ in range(3):
@@ -1096,13 +1259,19 @@ def _time_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    # ~2e9 cycles a second: spin twice as long as the host needs to enqueue
-    torch.cuda._sleep(int(min(2.0 * reps * t_host, 2.0) * 2e9))
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
+    spin = min(2.0 * reps * t_host, 2.0)  # seconds: twice the enqueue time
+    for _ in range(4):
+        torch.cuda._sleep(int(spin * 2e9))   # ~2e9 cycles a second
+        t0.record()
+        t_enqueue = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        t_enqueue = time.perf_counter() - t_enqueue
+        torch.cuda.synchronize()
+        if t_enqueue < spin or spin >= 2.0:
+            break
+        spin = min(2.0 * t_enqueue, 2.0)
     return t0.elapsed_time(t1) / reps
 
 
@@ -1200,7 +1369,7 @@ def _time_kernel(name, args, kernel, plain, library):
     esize = next(a for a in args if torch.is_tensor(a)).element_size()
     nbytes, flops = _work(name, args, esize)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_ops = flops / PEAK_FLOPS["float64" if esize == 8 else "float32"] * 1e3
     return ms, plain_ms, lib_ms, {
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1341,7 +1510,7 @@ def _card_line() -> str:
 
 
 # ---------------------------------------------------------------- phases
-def main() -> int:
+def main(save_captures: str | None = None) -> int:
     try:
         import torch
     except ImportError:
@@ -1412,14 +1581,13 @@ def main() -> int:
                                      wrappers, caps, PER_ITER, PER_COLD, card)
 
         # ---- 2b. the replan path ---------------------------------------------
-        rcaps = {"chol": Capture(cuda_kkt, "chol", REPLAN_PER_COLD["chol"]),
-                 "cho_solve": Capture(cuda_kkt, "cho_solve",
-                                      REPLAN_PER_COLD["cho_solve"])}
+        rcaps = {name: Capture(cuda_kkt, name, REPLAN_PER_COLD[name])
+                 for name in ("chol", "cho_solve", "cho_solve_vec")}
         rdcap = Capture(cuda_disc, "discretize_lanes", 0)
         # bench.py's settings: the latency readings, the kernels' inputs
         cfg_r = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True,
                          kkt="pcr")
-        with rcaps["chol"], rcaps["cho_solve"], rdcap:
+        with rcaps["chol"], rcaps["cho_solve"], rcaps["cho_solve_vec"], rdcap:
             r, rlaunches = run_replan(P, batch_mod, model, cfg_r, wrappers,
                                       {**rcaps, "discretize_lanes": rdcap},
                                       BENCH_REPLAN_ITERS, card)
@@ -1457,7 +1625,7 @@ def main() -> int:
                          w_dir_penalty=PENALTY_W)
         pcaps = {name: Capture(cuda_kkt, name, PENALIZED_PER_COLD[name])
                  for name in ("chol", "cho_solve", "tridiag_factor",
-                              "tridiag_solve")}
+                              "tridiag_solve", "cho_solve_vec")}
         print(f"penalized path: {pmodel.name}, one penalized direction a node "
               f"(the unit thrust direction), w_dir_penalty {PENALTY_W:g}")
         outp, plaunches, _ = run_sweep(
@@ -1536,7 +1704,8 @@ def main() -> int:
                   "fused_chol_solve": cuda_kkt.fused_chol_solve_plain}
         # chol and cho_solve factor and solve stage blocks, on one lane or
         # on a sweep's B lanes: hold them block by block
-        for c in (*rcaps.values(), pcaps["chol"], pcaps["cho_solve"]):
+        for c in (rcaps["chol"], rcaps["cho_solve"], pcaps["chol"],
+                  pcaps["cho_solve"]):
             c.first = _blockwise(c.first)
             c.late = [_blockwise(a) for a in c.late]
         print("checks: readings are fractions of their bounds (<= 1), the "
@@ -1684,6 +1853,23 @@ def main() -> int:
                   f"{'ok' if res['ok'] else 'FAIL'}")
             if not res["ok"]:
                 failed.append(f"{key} ({when})")
+        # chol, fused_chol_solve and tridiag_factor at an infinite and at a
+        # negative pivot (synthetic): factor on, or NaN, where the plain
+        # versions do
+        piv, piv_ok = check_pivots(cuda_kkt)
+        all_checks["pivots"] = piv
+        print(f"check pivots (an infinite and a negative pivot; chol and "
+              f"fused_chol_solve on 8 blocks of n=17, tridiag_factor on "
+              f"{TRIFAC_PIVOTS[:3]} at node {TRIFAC_PIVOTS[3]}; against the "
+              "float64 plain versions on the CPU: the same non-finite "
+              "entries, the rest within the forward gate or bit-equal): "
+              + "; ".join(f"{k} fwd {v['fwd_kernel']:.3f} (plain on the card "
+                          f"non-finite as the reference: "
+                          f"{v['card_plain_as_cpu']}) "
+                          f"{'ok' if v['ok'] else 'FAIL'}"
+                          for k, v in piv.items()))
+        if not piv_ok:
+            failed.append("pivots")
         with open(os.path.join(ROOT, "build", "chip_smoke_checks.json"), "w") as f:
             json.dump(all_checks, f)
         if failed:
@@ -1754,6 +1940,28 @@ def main() -> int:
             raise PhaseError(f"a wrapper took what its kernel does not ({what})")
         print(f"wrappers refuse: {', '.join(w for w, _, _ in refusals)} -> ok")
 
+        if save_captures:
+            # the inputs scripts/kernel_ab.py holds tridiag_factor and
+            # cho_solve_vec to a parent's kernels on (on the card)
+            late = LATE_LOCKSTEP
+            cv = caps["cho_solve_vec"]
+            torch.save({
+                "tridiag_factor": [("penalized path, first", pcaps[
+                    "tridiag_factor"].first)] + [
+                    (f"penalized path, SCvx iteration {late}, call {i}", a)
+                    for i, a in enumerate(pcaps["tridiag_factor"].late)
+                    if i % 4 == 0],
+                "cho_solve_vec": [("main path, first", cv.first)] + [
+                    (f"main path, SCvx iteration {late}, call {i}", a)
+                    for i, a in enumerate(cv.late) if i % 16 == 0] + [
+                    (f"{where}, first", c["cho_solve_vec"].first)
+                    for c, where in ((rcaps, "replan path"),
+                                     (pcaps, "penalized path"),
+                                     (mcaps, "point-mass path"))]},
+                save_captures)
+            print(f"captured inputs of tridiag_factor and cho_solve_vec "
+                  f"saved to {save_captures}")
+
         # ---- 5. times at each path's shapes -----------------------------------
         library = {
             "cho_solve_vec": lambda L, b: torch.cholesky_solve(b[..., None], L),
@@ -1769,14 +1977,23 @@ def main() -> int:
         timed = [(name, cap.first, launches[name], "main path")
                  for name, cap in caps.items()]
         timed.append(("discretize_lanes", rdcap.late[0], None, "replan path"))
-        timed += [(name, cap.first, rlaunches[name], "replan path")
-                  for name, cap in rcaps.items()]
+        timed += [(name, rcaps[name].first, rlaunches[name], "replan path")
+                  for name in ("chol", "cho_solve")]
         # chol and cho_solve also at a B=256 batch of the replan blocks
         timed += [(name, tuple(a.repeat(MAIN_B, *([1] * (a.dim() - 1)))
-                               for a in cap.first), None, "B=256 batch")
-                  for name, cap in rcaps.items()]
+                               for a in rcaps[name].first), None, "B=256 batch")
+                  for name in ("chol", "cho_solve")]
         timed.append(("tridiag_factor", pcaps["tridiag_factor"].first,
                       plaunches["tridiag_factor"], "penalized path"))
+        timed.append(("tridiag_factor", tuple(
+            a.double() for a in pcaps["tridiag_factor"].first), None,
+            "penalized path, float64"))
+        # cho_solve_vec at every path's shapes: replan (N=50), penalized
+        # (12,800) and point mass (7,680 blocks of n=11)
+        timed += [("cho_solve_vec", c["cho_solve_vec"].first, None, where)
+                  for c, where in ((rcaps, "replan path"),
+                                   (pcaps, "penalized path"),
+                                   (mcaps, "point-mass path"))]
         # the two redesigned kernels at their other paths' shapes, for the
         # record: tridiag_solve on the penalized path, both at the point
         # mass's (K=30, nrx=7)
@@ -1949,4 +2166,6 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--card-plain-factor":
         card_plain_factor(sys.argv[2])
         sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--save-captures":
+        sys.exit(main(sys.argv[2]))
     sys.exit(main())

@@ -7,7 +7,9 @@
 // (a 13 x 13 float block is 676 bytes, a 38 x 17 G slab 2,584, a lane's L
 // and C blocks 33,124) start at addresses that are rarely 16-byte aligned,
 // so element-sized copies are the ones that fit every range without
-// rounding it out past the tensor's end.
+// rounding it out past the tensor's end. cho_solve_vec's ranges (a warp's
+// 32 blocks) start 16-byte aligned when the tensor does, and take 16-byte
+// copies there (cp_async_16).
 
 #pragma once
 
@@ -34,6 +36,22 @@ __device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
                    smem_addr(dst)),
                "l"(src), "n"(sizeof(T))
                : "memory");
+}
+
+// dst (shared) <- src (global), 16 bytes, asynchronously; both addresses
+// 16-byte aligned. For contiguous ranges whose start is aligned
+// (cho_solve_vec's staging).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Wait until every cp.async this thread issued has landed (the caller then
+// syncs the threads that read the data).
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Close this thread's group of cp.async copies issued since the last one.

@@ -5,50 +5,24 @@
 //
 // For the SPD block-tridiagonal M with diagonal blocks D_k and couplings
 // M[k-1, k] = O_{k-1}, step k of the factorization is
-//   C_k = L_{k-1}^-1 O_{k-1}          (tri_coupling)
-//   S_k = D_k - C_k' C_k              (tri_schur, lower triangle)
-//   L_k = chol(S_k)                   (the caller's Cholesky)
-// Every matrix is n x n, row-major. In tri_coupling and tri_schur the
-// caller's threads split the work: thread tid of nt owns columns tid,
-// tid + nt, ... of C and entries tid, tid + nt, ... of S; the caller
-// synchronizes between the calls (tridiag_factor runs them with a warp
-// and warp_chol, which work in shared memory). warp_tri_step is the same
-// step with its working set in registers of one warp and warp_chol_rows
-// as its Cholesky (the fused factorization's recurrence warp; its
-// producers factor H_k with warp_chol_rows too).
+//   C_k = L_{k-1}^-1 O_{k-1}   forward substitution, column by column:
+//                              C[a][c] = (O[a][c] - sum_{m<a, ascending}
+//                              L[a][m] C[m][c]) / L[a][a]
+//   S_k = D_k - C_k' C_k       lower triangle: S[a][c] = D[a][c] - sum_{t
+//                              ascending} C[t][a] C[t][c]
+//   L_k = chol(S_k)            warp_chol's order (below)
+// Every matrix is n x n, row-major. warp_tri_step runs a step with its
+// working set in registers of one warp and warp_chol_rows as its Cholesky
+// (tridiag_factor's warp and the fused factorization's recurrence warp;
+// the fused producers factor H_k with warp_chol_rows too). These orders
+// are those of the first designs, which worked in shared memory; the
+// kernels keep them, so their results stay those designs' bit for bit.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 constexpr int kMaxN = 32;
-
-// C = L^-1 O by forward substitution, one column per thread. L lower
-// triangular (its upper triangle is not read); O and C must not alias.
-template <typename T>
-__device__ __forceinline__ void tri_coupling(const T* Lp, const T* O, T* C,
-                                             int n, int tid, int nt) {
-  for (int c = tid; c < n; c += nt) {
-    for (int a = 0; a < n; ++a) {
-      T s = O[a * n + c];
-      for (int m = 0; m < a; ++m) s -= Lp[a * n + m] * C[m * n + c];
-      C[a * n + c] = s / Lp[a * n + a];
-    }
-  }
-}
-
-// The lower triangle of S = D - C' C; only D's lower triangle is read.
-template <typename T>
-__device__ __forceinline__ void tri_schur(const T* D, const T* C, T* S, int n,
-                                          int tid, int nt) {
-  for (int i = tid; i < n * n; i += nt) {
-    const int a = i / n, c = i % n;
-    if (c > a) continue;
-    T acc = D[i];
-    for (int t = 0; t < n; ++t) acc -= C[t * n + a] * C[t * n + c];
-    S[i] = acc;
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ T quiet_nan();
@@ -64,7 +38,10 @@ __device__ __forceinline__ double quiet_nan<double>() {
 // In-place lower Cholesky of the n x n row-major block `a` in shared memory
 // by the whole warp (lane li), left-looking, column by column; the upper
 // triangle is not read. Returns true (on every lane) when a pivot is <= 0
-// or not finite; `a` then holds garbage.
+// or NaN (LAPACK potrf's test, smallla.chol's); `a` then holds garbage. An
+// infinite pivot factors on, as potrf's does: an infinite diagonal entry,
+// zeros below it, and the rest the factor of the block without that row
+// and column.
 template <typename T>
 __device__ bool warp_chol(T* a, int n, int li) {
   const unsigned full = 0xffffffffu;
@@ -78,7 +55,7 @@ __device__ bool warp_chol(T* a, int n, int li) {
       for (int k = 0; k < j; ++k) s -= a[li * n + k] * a[j * n + k];
     }
     const T piv = __shfl_sync(full, s, j);
-    bad = bad || !(piv > T(0)) || isinf(piv);
+    bad = bad || !(piv > T(0));
     const T d = sqrt(piv);
     // lane i only rewrites its own entry of column j, which no other lane
     // reads in this step
@@ -144,12 +121,11 @@ __device__ __forceinline__ void lane_cho_solve_col(const T* l, const T* Bb,
 // The code has no branch that depends on the lane: the lanes compute every
 // entry and keep the ones on and below the diagonal by selects, so with n
 // a compile-time constant the whole factor is straight-line code.
-// Returns true on every lane when a pivot is <= 0 or NaN (smallla.chol's
-// test, LAPACK potrf's, which the fused factorization's plain version
-// follows): an infinite pivot factors on, to an infinite diagonal entry
-// and zeros below it, as potrf's does (warp_chol counts it as a
-// breakdown). On a breakdown `row` holds garbage; else, on return,
-// row[b] = L[a][b] for b <= a.
+// Returns true on every lane when a pivot is <= 0 or NaN (warp_chol's
+// test, smallla.chol's, LAPACK potrf's): an infinite pivot factors on, to
+// an infinite diagonal entry and zeros below it, as potrf's does. On a
+// breakdown `row` holds garbage; else, on return, row[b] = L[a][b] for
+// b <= a.
 template <typename T, int NMAX>
 __device__ __forceinline__ bool warp_chol_rows(T (&row)[NMAX], int n,
                                                int li) {
@@ -185,8 +161,8 @@ __device__ __forceinline__ bool warp_chol_rows(T (&row)[NMAX], int n,
 //   C_k = L_{k-1}^-1 O_{k-1}     (Op == nullptr: C_k = 0)
 //   S_k = D_k - C_k' C_k         (Dk: D_k, lower triangle read)
 //   L_k = chol(S_k)              (warp_chol_rows)
-// Every value takes the operations of tri_coupling, tri_schur and warp_chol
-// in their order (and so their rounding). Lp: L_{k-1} in shared memory
+// Every value takes the operations of the header's step and of warp_chol in
+// their order (and so their rounding). Lp: L_{k-1} in shared memory
 // (lower triangle and diagonal read, by every lane alike); Op: O_{k-1} and
 // Dk: D_k, in shared memory. Out: C_k in sC (n x n) and L_k's lower triangle and
 // diagonal in sL, which may be Lp (every read of Lp comes first); when a

@@ -12,10 +12,26 @@
 //   of ipm._H_solve, n = nw = 17, N = B*K = 12,800 at the main path).
 //   Bound on the H100: bytes. Each block is read once (n*n + n values in,
 //   n out) and does ~2 n^2 flops, about 0.25 flop per byte in float32.
-//   Design: one thread per block, forward and backward substitution in
-//   registers/local memory; the ragged edge is a bounds check, where the TPU
-//   padded the batch with identity blocks. Simple first: neighbouring
-//   threads read addresses n*n apart, so the loads are not coalesced.
+//   What a block waits on is its chain: n divisions forward, and backward
+//   a serial chain of n divisions and n(n-1)/2 dependent FMAs.
+//   Design: a warp takes 32 consecutive blocks, one a lane. The warp first
+//   stages the 32 blocks of L and of b into shared memory together, by
+//   cp.async (16-byte copies where the tensors are 16-byte aligned: a
+//   warp's range is contiguous in device memory), so the loads are
+//   coalesced and none sits inside a chain. Each lane then solves its own
+//   block from shared memory with the first design's operations in their
+//   order (forward: s = b_r, k ascending, a true division by L[r][r];
+//   backward: s = y_r, k = r+1.. ascending, the division), so the results
+//   are that design's bit for bit; a block's stride in shared memory is
+//   odd, so the 32 lanes read 32 banks. x goes back through shared memory,
+//   coalesced. The models' widths (nw = 17 for the rocket, 11 for the point
+//   mass) are compiled into their own kernels, which unroll the chains and
+//   keep y in registers; other widths take the kernel bounded by 32. One
+//   warp a CTA: 400 CTAs at the main path's 12,800 blocks spread over all
+//   132 SMs. More lanes a block (a row a lane) would not shorten the
+//   backward chain, whose order is fixed, and would issue it once a block
+//   instead of once per 32 blocks. The ragged edge is a bounds check,
+//   where the TPU padded the batch with identity blocks.
 //
 // ---------------------------------------------------------------------------
 // tridiag_solve: M u = r for a block-tridiagonal SPD M given its block
@@ -64,11 +80,14 @@
 //   pivot s_j comes from lane j by a shuffle, and lane i writes
 //   L[i][j] = s_i / sqrt(s_j); one __syncwarp per column. The block goes
 //   back with zeros above the diagonal, again coalesced. Breakdown follows
-//   ops/smallla.py chol: a block with any pivot <= 0 or non-finite comes
-//   out ENTIRELY NaN (the IPM masks lanes by finiteness, so a block that is
-//   finite in part would be wrong). Every non-finite entry of L feeds the
-//   pivot of its row, so the pivot test also catches non-finite inputs in
-//   the lower triangle; the upper triangle is never read (as cholesky_ex).
+//   ops/smallla.py chol (LAPACK potrf's test): a block with a pivot <= 0 or
+//   NaN comes out ENTIRELY NaN (the IPM masks lanes by finiteness, so a
+//   broken block that is finite in part would pass). An infinite pivot factors
+//   on, as potrf's does: an infinite diagonal entry, zeros below it, and
+//   the factor of the rest. A NaN or infinite entry of L below the diagonal
+//   feeds the pivot of its row, which then comes out NaN or -inf, so the
+//   pivot test catches such inputs in the lower triangle; the upper
+//   triangle is never read (as cholesky_ex).
 //
 // ---------------------------------------------------------------------------
 // cho_solve: (L L') X = B for N independent blocks, B and X n x m (m <= 32).
@@ -95,19 +114,28 @@
 //   ipm.py:243-244, which runs when the subproblem has rank-one quadratic
 //   rows; N = K-1 = 49, n = 13 at B = 256 on the penalized path). Bound on
 //   the H100: bytes (D's lower triangle and O read once, L and C written
-//   once, about 2.3 n^3 flops a block). The steps along N are sequential.
-//   Design: one warp per lane walks k = 0..N-1, keeping L_{k-1}, C_k and S_k
-//   in shared memory (3 n^2 values). C_k comes by forward substitution, one
-//   column per lane of the warp, reading O_{k-1} straight from device memory
-//   (the lanes read consecutive addresses); S_k = D_k - C_k'C_k, one entry
-//   per lane; then the warp Cholesky of `chol` below. The first two steps
-//   are the device functions of blocktri.cuh, which the fused factorization
-//   (fused_factor.cu) runs with a thread block instead of a warp. The TPU
-//   carried L_{k-1} in VMEM scratch between grid steps along N; here the
-//   loop along N runs inside the warp. Breakdown follows
-//   smallla.blocktridiag_factor: a block with a pivot <= 0 or non-finite
+//   once, about 2.3 n^3 flops a block). The steps along N are sequential:
+//   what a lane waits on is N steps of dependent divisions, roots and
+//   shuffles.
+//   Design: one warp a lane and one lane a CTA, so B = 256 lanes spread over
+//   all 132 SMs (as tridiag_solve). Each step is warp_tri_step
+//   (blocktri.cuh, the fused factorization's recurrence step): C_k, S_k and
+//   L_k in registers, lane c a column of C, lane a a row of S and L, with
+//   the models' width (the rocket's nrx = 13) compiled in and other widths
+//   bounded by 32; C_k and L_k go to device memory from its stores. D_k and
+//   O_{k-1} come into shared memory in chunks of up to 4 nodes by cp.async,
+//   a ring of three slots, each chunk with an mbarrier, issued two chunks
+//   ahead, so a step never waits on device memory. L_{k-1} and C_k stay in
+//   shared memory between steps. The TPU carried L_{k-1} in VMEM scratch
+//   between grid steps along N; here the loop along N runs inside the warp.
+//   Every value takes the first design's operations (blocktri.cuh's step,
+//   then warp_chol) in their order, so the results are that design's bit
+//   for bit wherever no block breaks down: the penalized path's f64
+//   card-vs-CPU gate has no margin against a change of order. Breakdown
+//   follows smallla.blocktridiag_factor: a block with a pivot <= 0 or NaN
 //   comes out entirely NaN, and so does every later block of its lane (a NaN
-//   L_k makes C_{k+1} NaN), which the IPM's stall exit relies on.
+//   L_k makes C_{k+1} NaN), which the IPM's stall exit relies on; an
+//   infinite pivot factors on, as `chol` does.
 //
 // ---------------------------------------------------------------------------
 // fused_chol_solve: A X = B for N independent SPD blocks, A n x n, B and X
@@ -119,7 +147,9 @@
 //   Design: `chol` and `cho_solve` below composed in one warp per block: the
 //   warp copies A's lower triangle into shared memory, factors it there, and
 //   lane c solves column c against the factor, which never leaves shared
-//   memory. A block whose factor breaks down comes out entirely NaN.
+//   memory. A block whose factor breaks down (`chol`'s test) comes out
+//   entirely NaN; at an infinite pivot the factor goes on, and the solves
+//   give that unknown 0, as smallla.cho_solve does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -129,27 +159,100 @@
 
 namespace {
 
+// cho_solve_vec: blocks a warp, one a lane (a CTA is one warp), where they
+// fit in shared memory with room for two CTAs an SM (fewer for widths
+// above 20 in float64 and 29 in float32).
+constexpr int kVecBlocks = 32;
+
+// dst (shared) <- src (global), `count` elements by the warp: 16-byte
+// copies where src is 16-byte aligned (dst is, by the caller's layout),
+// element copies for the rest. Not waited for.
 template <typename T>
-__global__ void cho_solve_vec_kernel(const T* __restrict__ L,
-                                     const T* __restrict__ b,
-                                     T* __restrict__ x, int N, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N) return;
-  const T* Li = L + (size_t)i * n * n;
-  const T* bi = b + (size_t)i * n;
-  T y[kMaxN];
-  for (int r = 0; r < n; ++r) {
-    T s = bi[r];
-    for (int k = 0; k < r; ++k) s -= Li[r * n + k] * y[k];
-    y[r] = s / Li[r * n + r];
+__device__ __forceinline__ void warp_stage(T* dst, const T* src, int count,
+                                           int li) {
+  constexpr int V = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int nv = count / V;
+    for (int i = li; i < nv; i += 32) cp_async_16(dst + i * V, src + i * V);
+    done = nv * V;
   }
-  for (int r = n - 1; r >= 0; --r) {
-    T s = y[r];
-    for (int k = r + 1; k < n; ++k) s -= Li[k * n + r] * y[k];
-    y[r] = s / Li[r * n + r];
+  for (int i = done + li; i < count; i += 32) cp_async_elem(dst + i, src + i);
+}
+
+// nb consecutive blocks of `len` elements from src (global) to dst
+// (shared) at a stride of `stride` >= len elements, by the warp.
+template <typename T>
+__device__ __forceinline__ void warp_stage_blocks(T* dst, const T* src, int nb,
+                                                  int len, int stride,
+                                                  int li) {
+  if (stride == len) {
+    warp_stage(dst, src, nb * len, li);
+    return;
   }
-  T* xi = x + (size_t)i * n;
-  for (int r = 0; r < n; ++r) xi[r] = y[r];
+  for (int t = li; t < nb * len; t += 32) {
+    const int blk = t / len;
+    cp_async_elem(dst + blk * stride + (t - blk * len), src + t);
+  }
+}
+
+// An odd stride (in elements) for blocks of `len` in shared memory: lanes
+// that read the same entry of their own blocks then hit 32 banks (4-byte
+// words; 8-byte ones are served half a warp at a time).
+__host__ __device__ __forceinline__ int odd_stride(int len) { return len | 1; }
+
+// NMAX: n when EXACT, else its bound, 32 (the launch dispatches).
+template <typename T, int NMAX, bool EXACT>
+__global__ void __launch_bounds__(32)
+    cho_solve_vec_kernel(const T* __restrict__ L, const T* __restrict__ b,
+                         T* __restrict__ x, int N, int n, int nbw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (EXACT) n = NMAX;
+  const int li = threadIdx.x;
+  const int blk0 = blockIdx.x * nbw;
+  const int nb = min(nbw, N - blk0);
+  const int nn = n * n;
+  const int sl = odd_stride(nn), sb = odd_stride(n);
+  T* Ls = reinterpret_cast<T*>(smem_raw);
+  T* bs = reinterpret_cast<T*>(
+      smem_raw + align16((size_t)nbw * sl * sizeof(T)));
+  warp_stage_blocks(Ls, L + (size_t)blk0 * nn, nb, nn, sl, li);
+  warp_stage_blocks(bs, b + (size_t)blk0 * n, nb, n, sb, li);
+  cp_async_wait_all();
+  __syncwarp();
+  if (li < nb) {
+    const T* l = Ls + li * sl;
+    T* v = bs + li * sb;  // b, then x
+    T y[NMAX];
+#pragma unroll
+    for (int r = 0; r < NMAX; ++r) {
+      if (EXACT || r < n) {
+        T s = v[r];
+#pragma unroll
+        for (int k = 0; k < r; ++k) s -= l[r * n + k] * y[k];
+        y[r] = s / l[r * n + r];
+      }
+    }
+#pragma unroll
+    for (int r = NMAX - 1; r >= 0; --r) {
+      if (EXACT || r < n) {
+        T s = y[r];
+#pragma unroll
+        for (int k = r + 1; k < NMAX; ++k)
+          if (EXACT || k < n) s -= l[k * n + r] * y[k];
+        y[r] = s / l[r * n + r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NMAX; ++r)
+      if (EXACT || r < n) v[r] = y[r];
+  }
+  __syncwarp();
+  T* xb = x + (size_t)blk0 * n;
+  for (int t = li; t < nb * n; t += 32) {
+    const int blk = t / n;
+    xb[t] = bs[blk * sb + (t - blk * n)];
+  }
 }
 
 // Column lc of an n x n row-major block in shared memory.
@@ -391,44 +494,69 @@ __global__ void fused_chol_solve_kernel(const T* __restrict__ A,
   if (li < m) lane_cho_solve_col(a, B + (size_t)blk * n * m, Xb, n, m, li);
 }
 
-template <typename T>
-__global__ void tridiag_factor_kernel(const T* __restrict__ D,
-                                      const T* __restrict__ O,
-                                      T* __restrict__ L, T* __restrict__ C,
-                                      int B, int N, int n) {
-  extern __shared__ unsigned char smem_raw[];
-  const int warp = threadIdx.x / 32;
-  const int li = threadIdx.x % 32;
-  const int lane_b = blockIdx.x * (blockDim.x / 32) + warp;
-  if (lane_b >= B) return;  // the whole warp leaves together
+// One warp a lane, one lane a CTA (see the note at the top). Shared
+// memory: the ring's mbarriers, L_{k-1} (overwritten by L_k), C_k, and a
+// ring of nslots slots of ch nodes, each slot the chunk's D blocks and then
+// its O blocks (O_{k-1} beside D_k; node 0 has none).
+// NMAX: n when EXACT, else its bound, 32 (the launch dispatches).
+template <typename T, int NMAX, bool EXACT>
+__global__ void __launch_bounds__(32)
+    tridiag_factor_kernel(const T* __restrict__ D, const T* __restrict__ O,
+                          T* __restrict__ L, T* __restrict__ C, int N, int n,
+                          int ch, int nslots) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (EXACT) n = NMAX;
+  const int li = threadIdx.x;
+  const int lane_b = blockIdx.x;
   const size_t nn = (size_t)n * n;
-  T* sLp = reinterpret_cast<T*>(smem_raw) + (size_t)warp * 3 * nn;  // L_{k-1}
-  T* sC = sLp + nn;                                                  // C_k
-  T* sS = sC + nn;                                         // S_k, then L_k
+  const size_t w_off = align16((size_t)nslots * sizeof(uint64_t));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  T* sL = reinterpret_cast<T*>(smem_raw + w_off);  // L_{k-1}, then L_k
+  T* sC = sL + nn;                                   // C_k
+  T* ring = reinterpret_cast<T*>(smem_raw + w_off +
+                                 align16(2 * nn * sizeof(T)));
+  const size_t slot_elems = (size_t)ch * 2 * nn;
   const T* Db = D + (size_t)lane_b * N * nn;
   const T* Ob = O + (size_t)lane_b * (N - 1) * nn;
   T* Lb = L + (size_t)lane_b * N * nn;
   T* Cb = C + (size_t)lane_b * N * nn;
-  const T nan = quiet_nan<T>();
-  for (int k = 0; k < N; ++k) {
-    if (k == 0) {
-      for (int t = li; t < (int)nn; t += 32) sC[t] = T(0);
-    } else {
-      tri_coupling(sLp, Ob + (k - 1) * nn, sC, n, li, 32);
+  const int nc = (N + ch - 1) / ch;
+
+  if (li == 0)
+    for (int s = 0; s < nslots; ++s) mbar_init(&bar[s], 32);
+  mbar_fence_init();
+  __syncwarp();
+
+  // chunk c: D_k and O_{k-1} of its nodes k0 .. k0 + cnt - 1
+  auto issue = [&](int c) {
+    if (c >= nc) return;
+    const int k0 = c * ch, cnt = min(ch, N - k0);
+    T* sl = ring + (size_t)(c % nslots) * slot_elems;
+    const int nd = cnt * (int)nn;
+    for (int i = li; i < nd; i += 32)
+      cp_async_elem(sl + i, Db + k0 * nn + i);
+    const int o0 = k0 == 0 ? 1 : 0;  // the chunk's first node with an O
+    const int no = (cnt - o0) * (int)nn;
+    T* so = sl + (ch + o0) * nn;
+    for (int i = li; i < no; i += 32)
+      cp_async_elem(so + i, Ob + (k0 + o0 - 1) * nn + i);
+    cp_async_mbar_arrive(&bar[c % nslots]);
+  };
+
+  issue(0);
+  issue(1);
+  for (int c = 0; c < nc; ++c) {
+    mbar_wait(&bar[c % nslots], (c / nslots) & 1);
+    __syncwarp();  // every lane is done with the slot issue(c + 2) refills
+    issue(c + 2);
+    const T* sl = ring + (size_t)(c % nslots) * slot_elems;
+    const int k0 = c * ch, cnt = min(ch, N - k0);
+    for (int i = 0; i < cnt; ++i) {
+      const int k = k0 + i;
+      warp_tri_step<T, NMAX>(sL, k == 0 ? nullptr : sl + (ch + i) * nn,
+                             sl + i * nn, sC, sL, n, li, Cb + k * nn,
+                             Lb + k * nn);
     }
-    __syncwarp();
-    tri_schur(Db + k * nn, sC, sS, n, li, 32);
-    __syncwarp();
-    const bool bad = warp_chol(sS, n, li);
-    warp_store_factor(sS, Lb + k * nn, n, bad, li);
-    for (int t = li; t < (int)nn; t += 32) {
-      Cb[k * nn + t] = sC[t];
-      if (bad) sS[t] = nan;  // every later block of the lane comes out NaN
-    }
-    __syncwarp();
-    T* tmp = sLp;  // L_k becomes L_{(k+1)-1}
-    sLp = sS;
-    sS = tmp;
   }
 }
 
@@ -484,20 +612,60 @@ int launch_fused_chol_solve(const void* A, const void* B, void* X, int N,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int NMAX, bool EXACT>
+int launch_tridiag_factor_n(const void* D, const void* O, void* L, void* C,
+                            int B, int N, int n, void* stream) {
+  const size_t nn = (size_t)n * n;
+  const int nslots = 3;
+  auto smem_of = [&](int ch) {
+    return align16((size_t)nslots * sizeof(uint64_t)) +
+           align16(2 * nn * sizeof(T)) + (size_t)nslots * ch * 2 * nn * sizeof(T);
+  };
+  // chunks of 4 nodes where that leaves room for two CTAs an SM (every
+  // width in float32, 13 in float64), else as many as fit
+  int ch = 4;
+  while (ch > 1 && smem_of(ch) > kTwoPerSm) --ch;
+  const size_t smem = smem_of(ch);
+  const cudaError_t err = cudaFuncSetAttribute(
+      tridiag_factor_kernel<T, NMAX, EXACT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  tridiag_factor_kernel<T, NMAX, EXACT><<<B, 32, smem,
+                                          (cudaStream_t)stream>>>(
+      (const T*)D, (const T*)O, (T*)L, (T*)C, N, n, ch, nslots);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_tridiag_factor(const void* D, const void* O, void* L, void* C,
                           int B, int N, int n, void* stream) {
   if (n < 1 || n > kMaxN || N < 1 || B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
-  // L_{k-1}, C_k and S_k of each warp's lane in shared memory
-  const size_t per_warp = 3 * (size_t)n * n * sizeof(T);
-  const size_t limit = 48 * 1024;
-  int warps = 4;
-  while (warps > 1 && warps * per_warp > limit) --warps;
-  const int blocks = (B + warps - 1) / warps;
-  tridiag_factor_kernel<T><<<blocks, warps * 32, warps * per_warp,
-                             (cudaStream_t)stream>>>(
-      (const T*)D, (const T*)O, (T*)L, (T*)C, B, N, n);
+  // the rocket's nrx = 13 (the penalized path) compiled in; other widths
+  // the kernel bounded by 32
+  if (n == 13)
+    return launch_tridiag_factor_n<T, 13, true>(D, O, L, C, B, N, n, stream);
+  return launch_tridiag_factor_n<T, kMaxN, false>(D, O, L, C, B, N, n, stream);
+}
+
+template <typename T, int NMAX, bool EXACT>
+int launch_cho_solve_vec_n(const void* L, const void* b, void* x, int N, int n,
+                           void* stream) {
+  auto smem_of = [&](int nbw) {
+    return align16((size_t)nbw * odd_stride(n * n) * sizeof(T)) +
+           (size_t)nbw * odd_stride(n) * sizeof(T);
+  };
+  int nbw = kVecBlocks;
+  while (nbw > 1 && smem_of(nbw) > kTwoPerSm) --nbw;
+  const size_t smem = smem_of(nbw);
+  const cudaError_t err = cudaFuncSetAttribute(
+      cho_solve_vec_kernel<T, NMAX, EXACT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (N + nbw - 1) / nbw;
+  cho_solve_vec_kernel<T, NMAX, EXACT><<<blocks, 32, smem,
+                                         (cudaStream_t)stream>>>(
+      (const T*)L, (const T*)b, (T*)x, N, n, nbw);
   return (int)cudaGetLastError();
 }
 
@@ -506,11 +674,13 @@ int launch_cho_solve_vec(const void* L, const void* b, void* x, int N, int n,
                          void* stream) {
   if (n < 1 || n > kMaxN || N < 0) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
-  const int threads = 128;
-  const int blocks = (N + threads - 1) / threads;
-  cho_solve_vec_kernel<T><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)L, (const T*)b, (T*)x, N, n);
-  return (int)cudaGetLastError();
+  // the models' stage widths (the rocket's nw = 17, the point mass's 11)
+  // compiled in; other widths the kernel bounded by 32
+  if (n == 17)
+    return launch_cho_solve_vec_n<T, 17, true>(L, b, x, N, n, stream);
+  if (n == 11)
+    return launch_cho_solve_vec_n<T, 11, true>(L, b, x, N, n, stream);
+  return launch_cho_solve_vec_n<T, kMaxN, false>(L, b, x, N, n, stream);
 }
 
 template <typename T, int NMAX, bool EXACT>

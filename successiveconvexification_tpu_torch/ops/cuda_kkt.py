@@ -104,7 +104,8 @@ def chol_plain(A: torch.Tensor) -> torch.Tensor:
 
 def chol(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky of SPD blocks A (..., n, n), n <= 32; a block with a
-    pivot <= 0 or non-finite comes out entirely NaN."""
+    pivot <= 0 or NaN comes out entirely NaN, and an infinite pivot factors
+    on (LAPACK potrf's test, ``smallla.chol``'s)."""
     if A.device.type == "cpu":
         return chol_plain(A)
     sfx = _build.suffix("chol", A)
@@ -163,8 +164,9 @@ def tridiag_factor(D: torch.Tensor, O: torch.Tensor):
     """Block Cholesky of SPD block-tridiagonal systems: D (B, N, n, n)
     diagonal blocks, O (B, N-1, n, n) couplings M[k, k+1] = O_k, n <= 32.
     Returns L, C (B, N, n, n): L_k = chol(D_k - C_k' C_k), C_k =
-    L_{k-1}^-1 O_{k-1}, C_0 = 0. From a block whose pivot is <= 0 or not
-    finite on, every block of the lane comes out NaN."""
+    L_{k-1}^-1 O_{k-1}, C_0 = 0. From a block with a pivot <= 0 or NaN
+    on, every block of the lane comes out NaN; an infinite pivot factors on,
+    as ``chol``'s does."""
     if D.device.type == "cpu" and O.device.type == "cpu":
         return tridiag_factor_plain(D, O)
     sfx = _build.suffix("tridiag_factor", D, O)
@@ -194,7 +196,8 @@ def fused_chol_solve_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
 
 def fused_chol_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve A_i X_i = B_i; A (..., n, n) SPD, B (..., n, m), n, m <= 32.
-    A block whose Cholesky factor breaks down comes out entirely NaN."""
+    A block whose Cholesky factor breaks down (``chol``'s test) comes out
+    entirely NaN."""
     if A.device.type == "cpu" and B.device.type == "cpu":
         return fused_chol_solve_plain(A, B)
     sfx = _build.suffix("fused_chol_solve", A, B)

@@ -44,6 +44,10 @@ def _t(a):
     return torch.as_tensor(np.array(a), dtype=F64)
 
 
+def _np(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def _tree_np(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -283,14 +287,73 @@ def test_tridiag_solve_plain_matches_jax_at_main_widths():
     _close(ut, uj, 1e-10, 1e-10 * float(np.abs(np.asarray(uj)).max()), "u")
 
 
-def test_cho_solve_vec_plain_matches_jax():
+@pytest.mark.parametrize("n", [17, 11])
+def test_cho_solve_vec_plain_matches_jax(n):
+    """At the stage widths the cho_solve_vec kernel compiles in: the
+    rocket's nw = 17 and the point mass's 11."""
     rng = np.random.default_rng(9)
-    H = _spd_blocks(rng, (B * K,), 17)
-    b = rng.standard_normal((B * K, 17))
+    H = _spd_blocks(rng, (B * K,), n)
+    b = rng.standard_normal((B * K, n))
     L = np.linalg.cholesky(H)
     xj = jla.cho_solve(jnp.asarray(L), jnp.asarray(b))
     xt = cuda_kkt.cho_solve_vec(_t(L), _t(b))
     _close(xt, xj, 1e-10, 1e-12, "x")
+
+
+def test_tridiag_factor_plain_matches_jax_at_penalized_widths():
+    """``tridiag_factor_plain`` (what the tridiag_factor kernel, with the
+    rocket's nrx = 13 compiled in, is held to on the card) against JAX's
+    ``smallla.blocktridiag_factor`` under vmap at the penalized path's
+    N=49, n=13, B=2, f64 round-off (rtol 1e-10)."""
+    rng = np.random.default_rng(14)
+    N, n = 49, 13
+    D = _spd_blocks(rng, (2, N), n)
+    O = 0.3 * rng.standard_normal((2, N - 1, n, n))
+    Lj, Cj = jax.vmap(jla.blocktridiag_factor)(jnp.asarray(D), jnp.asarray(O))
+    Lt, Ct = cuda_kkt.tridiag_factor_plain(_t(D), _t(O))
+    for name, t, j in (("L", Lt, Lj), ("C", Ct, Cj)):
+        _close(t, j, 1e-10, 1e-10 * float(np.abs(np.asarray(j)).max()), name)
+
+
+def _finite_parts_match(t, j, msg):
+    t, j = _np(t), _np(j)
+    np.testing.assert_array_equal(np.isfinite(t), np.isfinite(j), err_msg=msg)
+    fin = np.isfinite(j)
+    _close(t[fin], j[fin], 1e-10, 1e-10 * float(np.abs(j[fin]).max()), msg)
+
+
+def test_plain_factors_factor_on_at_an_infinite_pivot():
+    """An infinite diagonal entry is not a breakdown: LAPACK potrf's test,
+    which the JAX package's factors and the port's plain versions share and
+    the chol, fused_chol_solve and tridiag_factor kernels follow. The
+    factor holds that infinite entry with zeros below it and is finite
+    elsewhere; the solve gives that unknown 0; the block-tridiagonal factor
+    goes on finite in the later blocks of the lane. The plain versions
+    against JAX's ``smallla.chol``, ``smallla.cho_solve`` on that factor
+    and ``smallla.blocktridiag_factor``: the same non-finite entries, f64
+    round-off elsewhere."""
+    rng = np.random.default_rng(15)
+    n, j = 13, 5
+    A = _spd_blocks(rng, (4,), n)
+    A[1, j, j] = np.inf
+    R = rng.standard_normal((4, n, 2))
+    Lj = jla.chol(jnp.asarray(A))
+    Lt = cuda_kkt.chol(_t(A))
+    _finite_parts_match(Lt, Lj, "chol")
+    assert np.isinf(_np(Lt)[1, j, j]) and int(np.isinf(_np(Lt)).sum()) == 1
+    assert np.all(_np(Lt)[1, j + 1:, j] == 0.0)
+    Xt = cuda_kkt.fused_chol_solve(_t(A), _t(R))
+    _finite_parts_match(Xt, jla.cho_solve(Lj, jnp.asarray(R)), "fused_chol_solve")
+    assert np.isfinite(_np(Xt)).all() and np.all(_np(Xt)[1, j] == 0.0)
+    D = _spd_blocks(rng, (2, 6), n)
+    O = 0.3 * rng.standard_normal((2, 5, n, n))
+    D[1, 3, j, j] = np.inf
+    Lj, Cj = jax.vmap(jla.blocktridiag_factor)(jnp.asarray(D), jnp.asarray(O))
+    Lt, Ct = cuda_kkt.tridiag_factor(_t(D), _t(O))
+    _finite_parts_match(Lt, Lj, "tridiag_factor L")
+    _finite_parts_match(Ct, Cj, "tridiag_factor C")
+    assert np.isinf(_np(Lt)[1, 3, j, j]) and int(np.isinf(_np(Lt)).sum()) == 1
+    assert np.isfinite(_np(Ct)).all() and np.all(_np(Ct)[1, 4, j] == 0.0)
 
 
 def test_fused_chol_solve_plain_matches_pallas():
