@@ -73,7 +73,8 @@ from beside this file and never imports JAX or the JAX package). Phases:
      negative one gives NaN, and in tridiag_factor NaN in every later block
      of the lane), the rest within the forward gate or bit-equal to the
      kernel's output without the special pivots; the wrappers must refuse
-     what the kernels do not take;
+     what the kernels do not take (cho_solve: any layout but the ones it
+     reads in place);
   4. f64 on the card beside the same runs on the CPU with the plain
      versions (child processes, Ruiz on every solve): B=4 of the main path
      and of the penalized path at K=50, B=4 of the point-mass path at K=30,
@@ -84,9 +85,13 @@ from beside this file and never imports JAX or the JAX package). Phases:
      card with tridiag_factor's plain version (a child process beside the
      card runs), to show how far a change of summation order alone moves
      sigma;
-  5. each kernel's time at its path's shapes beside its bound, its plain
+  5. a profile of one cho_solve call of the replan and of the penalized
+     path, as the IPM makes it, in a child process: its kernel must be its
+     only device operation (L and B are read in place, not copied); then
+     each kernel's time at its path's shapes beside its bound, its plain
      version's time and, where one exists, one PyTorch library call's time
-     (chol and cho_solve also at a B=256 batch of blocks, for the record;
+     (chol and cho_solve also at a B=256 batch of blocks, for the record,
+     and cho_solve on the penalized path's call as the IPM makes it;
      fused_chol_solve at both of its phase-3 shapes; tridiag_solve also on
      the penalized path, and it and fused_factor at the point mass's
      shapes; tridiag_factor also in float64; cho_solve_vec at every path's
@@ -99,10 +104,14 @@ run's verdict ``{"ok": true, "device": {...}}``; the total wall is printed
 before them. Any failed phase exits
 non-zero without that line. ``--cpu-reference PATH CASE`` (CASE: main,
 penalized or pointmass) and ``--cpu-replan PATH`` (CPU only) and
-``--card-plain-factor PATH`` are the child modes of phase 4.
+``--card-plain-factor PATH`` are the child modes of phase 4,
+``--profile-cho-solve PATH`` that of phase 5.
 ``--save-captures PATH`` runs every phase and also saves the captured
-inputs of tridiag_factor and cho_solve_vec (a few hundred MB) for
-``scripts/kernel_ab.py``.
+inputs of tridiag_factor, cho_solve_vec, cho_solve (the replan and
+penalized paths' calls as the IPM makes them) and discretize_lanes (the
+first and a late call of every path) (a few hundred MB) for
+``scripts/kernel_ab.py``, ``scripts/kernel_stamps.py`` and
+``scripts/disc_stamps.py``.
 """
 
 from __future__ import annotations
@@ -439,6 +448,25 @@ def cpu_reference(path: str, case: str) -> None:
     st = P.solve_batch(model, pb, cfg, device="cpu")
     out = {**_reference_summary(st), "seconds": time.perf_counter() - t0}
     with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def profile_cho_solve(path: str) -> None:
+    """Child mode of phase 5: the device operations of one cho_solve call
+    on each call saved at ``path`` (the replan and penalized paths' first
+    calls, L and B as the IPM makes them), with their shapes and strides,
+    to ``path``.json. A fresh process: in the parent, a trace taken after
+    phase 2b's recorded no device operation at all."""
+    import torch
+
+    _, _, _, cuda_kkt, _ = _import_port()
+    out = {}
+    for where, args in torch.load(path, map_location="cuda").items():
+        cuda_kkt.cho_solve(*args)  # the library loads outside the trace
+        out[where] = {"shapes": [list(a.shape) for a in args],
+                      "strides": [list(a.stride()) for a in args],
+                      "ops": device_kernels(lambda: cuda_kkt.cho_solve(*args))}
+    with open(path + ".json", "w") as f:
         json.dump(out, f)
 
 
@@ -1410,6 +1438,21 @@ def profile_iteration(P, model, cfg, r) -> dict:
             "aten_calls": sum(e.count for e in ops)}
 
 
+def device_kernels(fn) -> list[str]:
+    """The names of the device operations (kernels, copies) one call of
+    ``fn`` runs, from torch.profiler."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def run_sweep(P, batch_mod, label, model, cfg, pb, wrappers, caps, per_iter,
               per_cold, card):
     """Drive a sweep the way the main path runs (``solve_batch_compact_device``
@@ -1626,11 +1669,13 @@ def main(save_captures: str | None = None) -> int:
         pcaps = {name: Capture(cuda_kkt, name, PENALIZED_PER_COLD[name])
                  for name in ("chol", "cho_solve", "tridiag_factor",
                               "tridiag_solve", "cho_solve_vec")}
+        pdcap = Capture(cuda_disc, "discretize_lanes", 0)
         print(f"penalized path: {pmodel.name}, one penalized direction a node "
               f"(the unit thrust direction), w_dir_penalty {PENALTY_W:g}")
         outp, plaunches, _ = run_sweep(
-            P, batch_mod, "penalized path", pmodel, cfg_p, pb, wrappers, pcaps,
-            PENALIZED_PER_ITER, PENALIZED_PER_COLD, card)
+            P, batch_mod, "penalized path", pmodel, cfg_p, pb, wrappers,
+            {**pcaps, "discretize_lanes": pdcap}, PENALIZED_PER_ITER,
+            PENALIZED_PER_COLD, card)
         both = outp.converged & out.converged
         gap = ((outp.sigma - out.sigma).abs() / out.sigma.abs())[both]
         gs = sorted(gap.tolist())
@@ -1702,6 +1747,12 @@ def main(save_captures: str | None = None) -> int:
                   "cho_solve": cuda_kkt.cho_solve_plain,
                   "tridiag_factor": cuda_kkt.tridiag_factor_plain,
                   "fused_chol_solve": cuda_kkt.fused_chol_solve_plain}
+        # cho_solve's calls as the IPM makes them (L a slice of one factor,
+        # B a transposed view), for phase 5 and --save-captures
+        cho_raw = {"replan path": (rcaps["cho_solve"].first,
+                                   rcaps["cho_solve"].late),
+                   "penalized path": (pcaps["cho_solve"].first,
+                                      pcaps["cho_solve"].late)}
         # chol and cho_solve factor and solve stage blocks, on one lane or
         # on a sweep's B lanes: hold them block by block
         for c in (rcaps["chol"], rcaps["cho_solve"], pcaps["chol"],
@@ -1896,6 +1947,14 @@ def main(save_captures: str | None = None) -> int:
             ("cho_solve CPU and CUDA tensors mixed", ValueError,
              lambda: cuda_kkt.cho_solve(torch.eye(4, device=dev)[None],
                                         torch.zeros(1, 4, 3))),
+            ("cho_solve B's columns strided (a layout it does not read)",
+             ValueError, lambda: cuda_kkt.cho_solve(
+                 torch.eye(4, device=dev).expand(2, 4, 4).contiguous(),
+                 torch.zeros(2, 4, 6, device=dev)[..., ::2])),
+            ("cho_solve L's blocks column-major (a layout it does not read)",
+             ValueError, lambda: cuda_kkt.cho_solve(
+                 torch.eye(4, device=dev).expand(2, 4, 4).contiguous()
+                 .transpose(-1, -2), torch.zeros(2, 4, 3, device=dev))),
             ("discretize_lanes float16", TypeError, lambda: cuda_disc.discretize_lanes(
                 *_disc_cast(dcap.first, torch.float16))),
             ("discretize_lanes CPU and CUDA tensors mixed", ValueError,
@@ -1941,11 +2000,33 @@ def main(save_captures: str | None = None) -> int:
         print(f"wrappers refuse: {', '.join(w for w, _, _ in refusals)} -> ok")
 
         if save_captures:
-            # the inputs scripts/kernel_ab.py holds tridiag_factor and
-            # cho_solve_vec to a parent's kernels on (on the card)
+            # the inputs scripts/kernel_ab.py holds tridiag_factor,
+            # cho_solve_vec, cho_solve and discretize_lanes to a parent's
+            # kernels on (on the card); a discretize call as (model name,
+            # params fields, X, U, sigma, substeps, foh)
             late = LATE_LOCKSTEP
             cv = caps["cho_solve_vec"]
+
+            def disc_saved(a):
+                mdl, prm_, *rest = a
+                return (mdl.cuda_dynamics.name, prm_.fields(), *rest)
+
             torch.save({
+                "cho_solve": [
+                    (f"{where}, {when}", a)
+                    for where, (first, calls) in cho_raw.items()
+                    for when, a in [("first", first)] + [
+                        (f"late call {i}", c) for i, c in enumerate(calls)
+                        if i % 8 == 0]],
+                "discretize_lanes": [
+                    (f"{where}, {when}", disc_saved(a))
+                    for where, c in (("main path", dcap),
+                                     ("replan path", rdcap),
+                                     ("penalized path", pdcap),
+                                     ("point-mass path", mcap))
+                    for when, a in (("first", c.first),
+                                    ("late", c.late[0] if c.late else None))
+                    if a is not None],
                 "tridiag_factor": [("penalized path, first", pcaps[
                     "tridiag_factor"].first)] + [
                     (f"penalized path, SCvx iteration {late}, call {i}", a)
@@ -1959,8 +2040,8 @@ def main(save_captures: str | None = None) -> int:
                                      (pcaps, "penalized path"),
                                      (mcaps, "point-mass path"))]},
                 save_captures)
-            print(f"captured inputs of tridiag_factor and cho_solve_vec "
-                  f"saved to {save_captures}")
+            print(f"captured inputs of tridiag_factor, cho_solve_vec, "
+                  f"cho_solve and discretize_lanes saved to {save_captures}")
 
         # ---- 5. times at each path's shapes -----------------------------------
         library = {
@@ -1979,6 +2060,28 @@ def main(save_captures: str | None = None) -> int:
         timed.append(("discretize_lanes", rdcap.late[0], None, "replan path"))
         timed += [(name, rcaps[name].first, rlaunches[name], "replan path")
                   for name in ("chol", "cho_solve")]
+        # cho_solve on the penalized path's call as the IPM makes it: L
+        # chol_Hw[:, :-1] of B=256 lanes (a lane stride), B = E'
+        timed.append(("cho_solve", cho_raw["penalized path"][0], None,
+                      "penalized path, read in place"))
+        # ... which it reads in place: its one device operation is the
+        # kernel, no copy of L or B before it (traced in a child process)
+        prof_path = os.path.join(ROOT, "build", "chip_smoke_cho_solve_calls.pt")
+        torch.save({where: first for where, (first, _) in cho_raw.items()},
+                   prof_path)
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--profile-cho-solve", prof_path], cwd=ROOT,
+                            timeout=600).returncode
+        if rc != 0 or not os.path.exists(prof_path + ".json"):
+            raise PhaseError(f"cho_solve profile child failed (rc={rc})")
+        for where, res in json.load(open(prof_path + ".json")).items():
+            ops = res["ops"]
+            print(f"profile of one cho_solve call ({where}, shapes "
+                  f"{res['shapes']}, strides {res['strides']}): device "
+                  f"operations {ops}")
+            if len(ops) != 1 or "cho_solve_kernel" not in ops[0]:
+                raise PhaseError(f"cho_solve ({where}): device operations "
+                                 f"besides its kernel: {ops}")
         # chol and cho_solve also at a B=256 batch of the replan blocks
         timed += [(name, tuple(a.repeat(MAIN_B, *([1] * (a.dim() - 1)))
                                for a in rcaps[name].first), None, "B=256 batch")
@@ -2165,6 +2268,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--card-plain-factor":
         card_plain_factor(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--profile-cho-solve":
+        profile_cho_solve(sys.argv[2])
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--save-captures":
         sys.exit(main(sys.argv[2]))

@@ -139,7 +139,8 @@ def fast_sources() -> dict:
 def write_copy(name: str, sources: dict) -> Path:
     d = ROOT / "build" / "stamps" / name
     d.mkdir(parents=True, exist_ok=True)
-    (d / "async.cuh").write_text((CSRC / "async.cuh").read_text())
+    for header in CSRC.glob("*.cuh"):
+        (d / header.name).write_text(header.read_text())
     for fname, text in sources.items():
         (d / fname).write_text(text)
     return d
@@ -175,10 +176,12 @@ def main() -> int:
     precision.full_precision()
     card = cs._card_line()
     print(card)
-    stamped = kernel_ab.build_other(write_copy("stamped", stamped_sources()))
-    fast = kernel_ab.build_other(write_copy("fast", fast_sources()))
-    run_stamped = kernel_ab.other_wrappers(stamped)["tridiag_factor"]
-    run_fast = kernel_ab.other_wrappers(fast)["tridiag_factor"]
+    stamped = kernel_ab.build_other(write_copy("stamped", stamped_sources()),
+                                    tag="stamps_stamped")
+    fast = kernel_ab.build_other(write_copy("fast", fast_sources()),
+                                 tag="stamps_fast")
+    run_stamped = kernel_ab.other_wrappers({"kkt": stamped})["tridiag_factor"]
+    run_fast = kernel_ab.other_wrappers({"kkt": fast})["tridiag_factor"]
     read, clear = stamped.scvx_stamps_read, stamped.scvx_stamps_clear
     read.argtypes, clear.argtypes = [ctypes.c_void_p], []
     read.restype = clear.restype = ctypes.c_int
@@ -188,8 +191,7 @@ def main() -> int:
              and args[0].dtype == torch.float32]
     if opts.captures:
         calls += [(label, args) for name, label, args
-                  in kernel_ab.captured(opts.captures)
-                  if name == "tridiag_factor"]
+                  in kernel_ab.captured(opts.captures, ("tridiag_factor",))]
     for label, (D, O) in calls:
         B, N = D.shape[:2]
         t_port = cs._time_ms(lambda: cuda_kkt.tridiag_factor(D, O))

@@ -41,23 +41,40 @@
 // and nx + nu <= 32 threads, which both models meet. Per stage evaluation:
 //   A. threads 0..nx+nu-1 each evaluate the dynamics on a dual number
 //      seeded in direction j (x_0.., u_0..) and write sigma * column j of
-//      [A | B] to shared memory (thread 0 also f);
-//   B. thread i < nx forms row i of sA x + sB u;
-//   C. threads 0..2nx-1 form their own nx derivatives with ONE loop,
-//      out[i] = sum_k M[i][k] v[k] where M is sA for a Phi column and sA'
-//      (negated) for a P row, so the warp does not diverge on the nx^2-term
-//      products; the P rows then add P sB, P f and P w.
-// __syncwarp() separates the phases; a lane's working set in shared memory
-// is lane_smem<Dyn>() values (320 for the rocket, 1.25 KB in float32; 128
-// for the point mass). Constants are formed in double and rounded to the
-// scalar type, as the plain version's Python floats are. A lane whose
-// inputs are not finite comes out not finite; nothing faults.
-// First version: correct and simple. It recomputes the dynamics' primal in
-// every direction and leaves threads nx+nu..31 idle in phase A (17..31 for
-// the rocket, 10..31 for the point mass).
+//      [A | B] to shared memory twice: sA row-major for the Phi columns and
+//      transposed for the P rows (which read -sA'), sB transposed (thread 0
+//      also f);
+//   B. thread i < nx forms row i of sA x + sB u (from the transposes, so
+//      the threads read consecutive words);
+//   C. every thread runs the same code for its nx derivatives: out[i] =
+//      sum_j M[i][j] v[j] with M its matrix's base pointer (sA for a Phi
+//      column, sA' for a P row, negated); then the P rows form P sB, P f
+//      and P w and a column its x_t derivative (the first design's branch:
+//      as one select it moved nvcc's contraction of the Bm, Bp sums), then
+//      every thread the RK4 update.
+// Every row in shared memory is padded to a multiple of 16 bytes (row_ld:
+// an odd count of 16-byte chunks, so eight threads storing rows t, t+1, ..
+// hit 32 banks) and read by 16-byte loads: phase C's row of 14 is 4 loads
+// in float32 where it was 14 scalar loads at run-time strides. The
+// divisions of the dual numbers go by div_zs (divide.cuh): most of their
+// tangent numerators are exact zeros, which the IEEE division sends down
+// its slow path; the one exception is the tangent of ||v|| (dsqrt), where
+// the A/B against the first design showed nvcc contracting the drag terms
+// otherwise. Every value keeps the first design's operations in their
+// order (the same sums in the same order, true divisions and square roots),
+// so the outputs are that design's bit for bit. A lane's working set in
+// shared memory is lane_smem<T, Dyn>() values (700 for the rocket in
+// float32, 2.8 KB), the scenario's params among them. Constants are formed
+// in double and rounded to the scalar type, as the plain version's Python
+// floats are. A lane whose inputs are not finite comes out not finite;
+// nothing faults. Threads nx+nu..31 idle in phase A (17..31 for the rocket,
+// 10..31 for the point mass); each direction recomputes the dynamics'
+// primal.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "divide.cuh"
 
 namespace {
 
@@ -101,19 +118,32 @@ template <typename T>
 __device__ __forceinline__ Dual<T> operator-(T c, Dual<T> a) {
   return {c - a.v, -a.d};
 }
+// The quotients by div_zs: the IEEE quotient, a zero dividend off the
+// division's slow path (most tangent numerators are exact zeros: a
+// direction touches few outputs).
 template <typename T>
 __device__ __forceinline__ Dual<T> operator/(Dual<T> a, Dual<T> b) {
-  const T q = a.v / b.v;
-  return {q, (a.d - q * b.d) / b.v};
+  const T q = div_zs(a.v, b.v);
+  return {q, div_zs(a.d - q * b.d, b.v)};
 }
 template <typename T>
 __device__ __forceinline__ Dual<T> operator/(Dual<T> a, T c) {
-  return {a.v / c, a.d / c};
+  return {div_zs(a.v, c), div_zs(a.d, c)};
 }
+// sqrt: its tangent's quotient by a true division. The same bits, but with
+// div_zs there nvcc contracted the drag terms that use ||v|| into other
+// FMAs than the first design's (up to 5e-5 relative in Phi on the H100);
+// dsqrt_zs, by div_zs, serves a norm whose tangent feeds products only
+// (the thrust's).
 template <typename T>
 __device__ __forceinline__ Dual<T> dsqrt(Dual<T> a) {
   const T s = sqrt(a.v);
   return {s, a.d / (T(2) * s)};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> dsqrt_zs(Dual<T> a) {
+  const T s = sqrt(a.v);
+  return {s, div_zs(a.d, T(2) * s)};
 }
 
 // ------------------------------------------------------------ dynamics
@@ -150,7 +180,7 @@ struct Rocket6DoF {
     const S t0 = c00 * u0 + c01 * u1 + c02 * u2;
     const S t1 = c10 * u0 + c11 * u1 + c12 * u2;
     const S t2 = c20 * u0 + c21 * u1 + c22 * u2;
-    const S nu = dsqrt(u0 * u0 + u1 * u1 + u2 * u2 + eps);
+    const S nu = dsqrt_zs(u0 * u0 + u1 * u1 + u2 * u2 + eps);
     const S nv = dsqrt(v0 * v0 + v1 * v1 + v2 * v2 + eps);
     const S cn = p[1] * nv;
     out[0] = -(p[0] * nu);
@@ -189,7 +219,7 @@ struct PointMass3DoF {
     const T eps = T(1e-12);
     const S m = x[0];
     const S u0 = u[0], u1 = u[1], u2 = u[2];
-    const S nu = dsqrt(u0 * u0 + u1 * u1 + u2 * u2 + eps);
+    const S nu = dsqrt_zs(u0 * u0 + u1 * u1 + u2 * u2 + eps);
     out[0] = -(p[0] * nu);
     out[1] = x[4];
     out[2] = x[5];
@@ -200,14 +230,100 @@ struct PointMass3DoF {
   }
 };
 
-// Shared values per lane: the stage phases hold sA, sB, f, w and x; the
-// final products Phi, Bm, Bp, S and z. Rounded up to a multiple of 32.
-template <class Dyn>
+// Row stride in shared memory for rows of nx values: a multiple of 16
+// bytes, with an odd count of 16-byte chunks (rocket: 20 floats, 14
+// doubles; point mass: 12 floats, 10 doubles).
+template <typename T>
+__host__ __device__ constexpr int row_ld(int nx) {
+  constexpr int V = 16 / sizeof(T);
+  return ((nx + V - 1) / V) % 2 == 1 ? (nx + V - 1) / V * V
+                                     : (nx + V - 1) / V * V + V;
+}
+
+// Shared values per lane: the stage phases hold sA, sA', sB', f, w, x and
+// the scenario's params (2 nx + nu + 4 rows); the final products Phi, Bm,
+// Bp, S and z (fewer).
+template <typename T, class Dyn>
 __host__ __device__ constexpr int lane_smem() {
   constexpr int nx = Dyn::NX, nu = Dyn::NU;
-  constexpr int stage = nx * nx + nx * nu + 3 * nx;
+  constexpr int stage = (2 * nx + nu + 4) * row_ld<T>(nx);
   constexpr int final_ = nx * nx + 2 * nx * nu + 2 * nx;
-  return ((stage > final_ ? stage : final_) + 31) / 32 * 32;
+  constexpr int V = 16 / sizeof(T);
+  return ((stage > final_ ? stage : final_) + V - 1) / V * V;
+}
+
+// sum_{j < N, ascending} row[j] * v[j] from 0, as `a += row[j] * v[j]`:
+// row 16-byte aligned in shared memory, read by 16-byte loads.
+template <int N>
+__device__ __forceinline__ float dot_row(const float* row,
+                                         const float (&v)[N]) {
+  float a = 0.0f;
+#pragma unroll
+  for (int q = 0; q < (N + 3) / 4; ++q) {
+    const float4 w = reinterpret_cast<const float4*>(row)[q];
+    const float e[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * q + i < N) a += e[i] * v[4 * q + i];
+  }
+  return a;
+}
+template <int N>
+__device__ __forceinline__ double dot_row(const double* row,
+                                          const double (&v)[N]) {
+  double a = 0.0;
+#pragma unroll
+  for (int q = 0; q < (N + 1) / 2; ++q) {
+    const double2 w = reinterpret_cast<const double2*>(row)[q];
+    const double e[2] = {w.x, w.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (2 * q + i < N) a += e[i] * v[2 * q + i];
+  }
+  return a;
+}
+
+// v[0..N) <- row[0..N), row 16-byte aligned in shared memory.
+template <int N>
+__device__ __forceinline__ void load_vec(const float* row, float (&v)[N]) {
+#pragma unroll
+  for (int q = 0; q < (N + 3) / 4; ++q) {
+    const float4 w = reinterpret_cast<const float4*>(row)[q];
+    const float e[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * q + i < N) v[4 * q + i] = e[i];
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_vec(const double* row, double (&v)[N]) {
+#pragma unroll
+  for (int q = 0; q < (N + 1) / 2; ++q) {
+    const double2 w = reinterpret_cast<const double2*>(row)[q];
+    v[2 * q] = w.x;
+    if (2 * q + 1 < N) v[2 * q + 1] = w.y;
+  }
+}
+
+// row[0..N) <- v[0..N) by 16-byte stores (the padding after N is written
+// with zeros), row 16-byte aligned in shared memory.
+template <int N>
+__device__ __forceinline__ void store_vec(float* row, const float (&v)[N]) {
+#pragma unroll
+  for (int q = 0; q < (N + 3) / 4; ++q) {
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = 4 * q + i < N ? v[4 * q + i] : 0.0f;
+    reinterpret_cast<float4*>(row)[q] = make_float4(e[0], e[1], e[2], e[3]);
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_vec(double* row, const double (&v)[N]) {
+#pragma unroll
+  for (int q = 0; q < (N + 1) / 2; ++q) {
+    const double hi = 2 * q + 1 < N ? v[2 * q + 1] : 0.0;
+    reinterpret_cast<double2*>(row)[q] = make_double2(v[2 * q], hi);
+  }
 }
 
 // ---------------------------------------------------------------- kernel
@@ -221,9 +337,10 @@ __global__ void __launch_bounds__(kWarps * 32)
                       int K, int substeps, int foh) {
   constexpr int NX = Dyn::NX, NU = Dyn::NU, NP = Dyn::NP;
   constexpr int NE = 2 * NU + 2;  // extras a P row owns: Bm, Bp, S, z
-  constexpr int kSmem = lane_smem<Dyn>();
+  constexpr int kSmem = lane_smem<T, Dyn>();
+  constexpr int LD = row_ld<T>(NX);
   static_assert(2 * NX <= 32 && NX + NU <= 32, "one warp per lane");
-  extern __shared__ unsigned char smem_raw[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32;
   const int t = threadIdx.x % 32;
   const int Lk = K - 1;
@@ -231,20 +348,27 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (lane >= Bn * Lk) return;  // the whole warp leaves together
   const int b = lane / Lk, k = lane - b * Lk;
 
+  // rows of LD values, each 16-byte aligned
   T* sm = reinterpret_cast<T*>(smem_raw) + (size_t)warp * kSmem;
   T* sA = sm;                    // sigma df/dx, row-major NX x NX
-  T* sB = sm + NX * NX;          // sigma df/du, NX x NU
-  T* fs = sB + NX * NU;          // f
-  T* ws = fs + NX;               // sA x + sB u
-  T* xs = ws + NX;               // the stage input x
+  T* sAT = sA + NX * LD;         // its transpose
+  T* sBT = sAT + NX * LD;        // sigma df/du, transposed: NU x NX
+  T* fs = sBT + NU * LD;         // f
+  T* ws = fs + LD;               // sA x + sB u
+  T* xs = ws + LD;               // the stage input x
+  T* ps = xs + LD;               // the params the dynamics read (NP <= LD)
 
   const bool col = t < NX;                 // owns Phi[:, t] and x_t
   const bool row = t >= NX && t < 2 * NX;  // owns P[r, :], Bm/Bp/S/z row r
   const int r = col ? t : t - NX;
+  const int tc = col ? t : 0;          // a column every thread may read
+  const T* Mc = col ? sA : sAT;        // phase C's matrix: sA, or sA'
 
-  T p[NP];
-#pragma unroll
-  for (int i = 0; i < NP; ++i) p[i] = prm[(size_t)b * NP + i];
+  // the params from shared memory: in registers they pushed the rocket's
+  // float32 kernel past the 168 registers that let 12 warps share an SM
+  static_assert(NP <= LD, "params in one row");
+  if (t < NP) ps[t] = prm[(size_t)b * NP + t];
+  const T* p = ps;
   const T sg = sig[b];
   const T* xk = X + ((size_t)b * K + k) * NX;
   T uk[NU], up[NU];
@@ -255,7 +379,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 
   // carry y, RK4 stage sum acc, stage input st: the owned vector (Phi column
-  // or P row) and the extras (x_t for a column; Bm, Bp, S, z for a row)
+  // or P row; threads 2 NX.. carry zeros) and the extras (x_t for a column;
+  // Bm, Bp, S, z for a row)
   T y[NX], acc[NX], st[NX], ye[NE], acce[NE], ste[NE];
 #pragma unroll
   for (int i = 0; i < NX; ++i) y[i] = st[i] = (i == r) ? T(1) : T(0);
@@ -271,7 +396,6 @@ __global__ void __launch_bounds__(kWarps * 32)
   const double dt = h / substeps;
   const T c_half = (T)(dt / 2), c_full = (T)dt, c_sixth = (T)(dt / 6);
   const T sgn = col ? T(1) : T(-1);
-  const int s1 = col ? NX : 1, s2 = col ? 1 : NX;  // M = sA or sA'
 
   for (int it = 0; it < substeps; ++it) {
     const double tau0 = (double)it * dt;
@@ -286,68 +410,65 @@ __global__ void __launch_bounds__(kWarps * 32)
 
       // A. column t of sigma [A | B] by one dual-number evaluation
       if (t < NX + NU) {
+        T xv[NX];
+        load_vec<NX>(xs, xv);
         Dual<T> xd[NX], ud[NU], fd[NX];
 #pragma unroll
-        for (int j = 0; j < NX; ++j) xd[j] = {xs[j], j == t ? T(1) : T(0)};
+        for (int j = 0; j < NX; ++j) xd[j] = {xv[j], j == t ? T(1) : T(0)};
 #pragma unroll
         for (int c = 0; c < NU; ++c) ud[c] = {u[c], NX + c == t ? T(1) : T(0)};
         Dyn::f(p, xd, ud, fd);
+        T cv[NX];  // sigma * column t of [A | B]
+#pragma unroll
+        for (int i = 0; i < NX; ++i) cv[i] = sg * fd[i].d;
         if (t < NX) {
 #pragma unroll
-          for (int i = 0; i < NX; ++i) sA[i * NX + t] = sg * fd[i].d;
+          for (int i = 0; i < NX; ++i) sA[i * LD + t] = cv[i];
+          store_vec<NX>(sAT + t * LD, cv);
         } else {
-#pragma unroll
-          for (int i = 0; i < NX; ++i) sB[i * NU + (t - NX)] = sg * fd[i].d;
+          store_vec<NX>(sBT + (t - NX) * LD, cv);
         }
         if (t == 0) {
+          T fv[NX];
 #pragma unroll
-          for (int i = 0; i < NX; ++i) fs[i] = fd[i].v;
+          for (int i = 0; i < NX; ++i) fv[i] = fd[i].v;
+          store_vec<NX>(fs, fv);
         }
       }
       __syncwarp();
 
-      // B. w = sA x + sB u, row t
-      if (col) {
+      // B. w = sA x + sB u, row t (every thread alike; columns store)
+      {
+        T xv[NX];
+        load_vec<NX>(xs, xv);
         T a = T(0), bb = T(0);
 #pragma unroll
-        for (int j = 0; j < NX; ++j) a += sA[t * NX + j] * xs[j];
+        for (int j = 0; j < NX; ++j) a += sAT[j * LD + tc] * xv[j];
 #pragma unroll
-        for (int c = 0; c < NU; ++c) bb += sB[t * NU + c] * u[c];
-        ws[t] = a + bb;
+        for (int c = 0; c < NU; ++c) bb += sBT[c * LD + tc] * u[c];
+        if (col) ws[t] = a + bb;
       }
       __syncwarp();
 
       // C. the owned derivatives, then the RK4 update
-      if (col || row) {
+      {
         T kv[NX], ke[NE];
 #pragma unroll
-        for (int i = 0; i < NX; ++i) {
-          T a = T(0);
-#pragma unroll
-          for (int j = 0; j < NX; ++j) a += sA[i * s1 + j * s2] * st[j];
-          kv[i] = sgn * a;
-        }
+        for (int i = 0; i < NX; ++i) kv[i] = sgn * dot_row<NX>(Mc + i * LD, st);
 #pragma unroll
         for (int e = 0; e < NE; ++e) ke[e] = T(0);
         if (col) {
           ke[0] = sg * fs[t];
         } else {
+          // a P row's extras: P sB (lam_m, lam_p), P f, -P w
 #pragma unroll
           for (int c = 0; c < NU; ++c) {
-            T a = T(0);
-#pragma unroll
-            for (int j = 0; j < NX; ++j) a += st[j] * sB[j * NU + c];
+            const T a = dot_row<NX>(sBT + c * LD, st);
             ke[c] = lm * a;
             ke[NU + c] = lp * a;
           }
-          T a = T(0), bb = T(0);
-#pragma unroll
-          for (int j = 0; j < NX; ++j) {
-            a += st[j] * fs[j];
-            bb += st[j] * ws[j];
-          }
-          ke[2 * NU] = a;
-          ke[2 * NU + 1] = -bb;
+          ke[2 * NU] = dot_row<NX>(fs, st);
+          ke[2 * NU + 1] = -dot_row<NX>(ws, st);
         }
         // acc = ((k1 + 2 k2) + 2 k3) + k4; y += dt/6 acc; stage inputs
         // y + dt/2 k1, y + dt/2 k2, y + dt k3
@@ -438,7 +559,7 @@ int launch_discretize(const void* prm, const void* X, const void* U,
   if (L == 0) return (int)cudaSuccess;
   if (L > (long long)0x7fffffff - kWarps) return (int)cudaErrorInvalidValue;
   const int blocks = (int)((L + kWarps - 1) / kWarps);
-  const size_t smem = (size_t)kWarps * lane_smem<Dyn>() * sizeof(T);
+  const size_t smem = (size_t)kWarps * lane_smem<T, Dyn>() * sizeof(T);
   discretize_kernel<T, Dyn>
       <<<blocks, kWarps * 32, smem, (cudaStream_t)stream>>>(
           (const T*)prm, (const T*)X, (const T*)U, (const T*)sig, (T*)A,

@@ -93,17 +93,39 @@
 // cho_solve: (L L') X = B for N independent blocks, B and X n x m (m <= 32).
 //   Replaces pallas_kkt.py _cho_solve_kernel as launched by cho_solve (the
 //   matrix right-hand sides H^-1 E', H^-1 F' of the unfused factorize,
-//   ipm.py:209-210; n = 17, m = 13, N = K-1 = 49 on the replan path).
-//   Bound on the H100: bytes (L's lower triangle and B read once, X written
-//   once, 2 n^2 m flops a block).
-//   Design: one warp per block; L is copied into shared memory once per
-//   block and lane c owns column c of the right-hand side, running its own
-//   forward and backward substitution with no shuffles (every lane reads the
-//   same L entry: a shared-memory broadcast). Row i of B and of X is m
-//   consecutive values, so the lanes' reads and writes are coalesced. B must
-//   be row-major (N, n, m): the wrapper materializes a transposed view
-//   (E' of the port's E) with .contiguous() rather than folding the
-//   transpose into the indexing, which would put the lanes n values apart.
+//   ipm.py:192-193; n = 17, m = 13, N = K-1 = 49 on the replan path and
+//   B (K-1) = 12,544 on the penalized path). Bound on the H100: bytes (L's
+//   lower triangle and B read once, X written once, 2 n^2 m flops a block).
+//   What a lane waits on is its chain: n dependent divisions forward and
+//   n backward, with n(n-1)/2 dependent FMAs each way.
+//   Design: one (block, column) pair a lane, so every lane works: a CTA
+//   takes nbc consecutive blocks (32 where they fit with room for two CTAs
+//   an SM) and ceil(nbc m / 32) warps, lane p of the CTA the pair (p / m,
+//   p % m); at m = 13 that is 13 warps for 32 blocks, none idle, and in
+//   float32 three such CTAs share an SM (the launch bound caps a thread at
+//   52 registers; it needs 40, since each row's loads of L wait for the
+//   rows before it instead of all being hoisted ahead of the chain). The CTA
+//   first stages its blocks' L and B into shared memory by cp.async,
+//   16-byte copies wherever source and destination share their alignment
+//   (each block is placed at its source's offset modulo 16 bytes; the
+//   ragged ends go by element), so no load sits inside a chain. L is read
+//   in place with a lane stride (the caller's chol_Hw[:, :-1] and
+//   chol_Hw[:, 1:], blocks l_inner to a lane, lanes l_outer elements
+//   apart); B either row-major (N, n, m) or as the transpose of a
+//   contiguous (N, m, n) (b_trans: E' and F' of the IPM's E and F, whose
+//   rows are the columns here). Each lane loads its column of B into
+//   registers and solves with L read from shared memory: the lanes of one
+//   block read the same entry (a broadcast), and the few blocks of a warp
+//   sit at offsets that fall in different banks. The rocket's (n, m) =
+//   (17, 13) is compiled into its own kernel (chains unrolled, the column
+//   in registers); other widths take the kernel bounded by 32. Every value
+//   takes the first design's operations in their order (forward: s = b_r,
+//   k ascending, the division by L[r][r]; backward: s = y_r, k = r+1..
+//   ascending, the division), with the division by div_zs (divide.cuh:
+//   the same bits, a zero dividend off the slow path; E and F hold many
+//   exact zeros). A NaN or infinite factor passes through as in the first
+//   design. X goes back through shared memory, coalesced. The ragged edge
+//   is a bounds check, where the TPU padded the batch with identity blocks.
 //
 // ---------------------------------------------------------------------------
 // tridiag_factor: block Cholesky of B SPD block-tridiagonal systems, each
@@ -156,6 +178,7 @@
 
 #include "async.cuh"
 #include "blocktri.cuh"
+#include "divide.cuh"
 
 namespace {
 
@@ -452,22 +475,118 @@ __global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int N,
   warp_store_factor(a, L + blk * nn, n, bad, li);
 }
 
+// dst_slot (shared, 16-byte aligned) <- src (global), `count` elements by
+// threads li = 0.. of nl, placed at dst_slot + ph where ph is src's offset
+// in elements from 16-byte alignment, so that 16-byte copies fit wherever
+// the range allows; the ragged ends go by element. Returns ph. Not waited
+// for.
 template <typename T>
-__global__ void cho_solve_kernel(const T* __restrict__ L,
-                                 const T* __restrict__ B, T* __restrict__ X,
-                                 int N, int n, int m) {
-  extern __shared__ unsigned char smem_raw[];
-  const int warp = threadIdx.x / 32;
-  const int li = threadIdx.x % 32;
-  const int blk = blockIdx.x * (blockDim.x / 32) + warp;
-  if (blk >= N) return;  // the whole warp leaves together
-  const size_t nn = (size_t)n * n;
-  T* l = reinterpret_cast<T*>(smem_raw) + (size_t)warp * nn;
-  warp_load_lower(L + blk * nn, l, n, li);  // only the lower triangle is read
-  __syncwarp();
-  if (li >= m) return;
-  lane_cho_solve_col(l, B + (size_t)blk * n * m, X + (size_t)blk * n * m, n,
-                     m, li);
+__device__ __forceinline__ int stage_aligned(T* dst_slot, const T* src,
+                                             int count, int li, int nl) {
+  constexpr int V = 16 / sizeof(T);
+  const int ph = (int)((reinterpret_cast<uintptr_t>(src) / sizeof(T)) % V);
+  T* dst = dst_slot + ph;
+  const int head = min(count, (V - ph) % V);
+  const int nv = (count - head) / V;
+  for (int i = li; i < head; i += nl) cp_async_elem(dst + i, src + i);
+  for (int i = li; i < nv; i += nl)
+    cp_async_16(dst + head + i * V, src + head + i * V);
+  for (int i = head + nv * V + li; i < count; i += nl)
+    cp_async_elem(dst + i, src + i);
+  return ph;
+}
+
+// Elements a block's slot of L holds in shared memory: n*n and room for
+// its phase (stage_aligned), rounded to 16 bytes.
+template <typename T>
+__host__ __device__ __forceinline__ int cho_l_slot(int nn) {
+  constexpr int V = 16 / sizeof(T);
+  return (nn + V - 1 + V - 1) / V * V;
+}
+
+// One (block, column) pair a lane (see the note at the top). Shared
+// memory: nbc slots of L, then the CTA's B range (and X, which overwrites
+// it once every lane holds its column).
+// NMAX, MMAX: n and m when EXACT, else their bound, 32 (the launch
+// dispatches).
+template <typename T, int NMAX, int MMAX, bool EXACT>
+__global__ void __launch_bounds__(EXACT ? (32 * MMAX + 31) / 32 * 32 : 512,
+                                  EXACT && sizeof(T) == 4 ? 3 : 1)
+    cho_solve_kernel(const T* __restrict__ L, const T* __restrict__ B,
+                     T* __restrict__ X, int N, int n, int m, int l_inner,
+                     int l_outer, int b_trans, int nbc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (EXACT) {
+    n = NMAX;
+    m = MMAX;
+  }
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, li = tid % 32, nwarps = nthr / 32;
+  const int blk0 = blockIdx.x * nbc;
+  const int nb = min(nbc, N - blk0);
+  const int nn = n * n, nm = n * m;
+  const int sl = cho_l_slot<T>(nn);
+  T* Ls = reinterpret_cast<T*>(smem_raw);
+  T* Bs = Ls + (size_t)nbc * sl;  // 16-byte aligned, as sl is a multiple of V
+  auto l_src = [&](int j) {
+    const int g = blk0 + j;
+    return L + (size_t)(g / l_inner) * l_outer + (size_t)(g % l_inner) * nn;
+  };
+  for (int j = warp; j < nb; j += nwarps)
+    stage_aligned(Ls + (size_t)j * sl, l_src(j), nn, li, 32);
+  const int phb = stage_aligned(Bs, B + (size_t)blk0 * nm, nb * nm, tid, nthr);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int j = tid / m, c = tid - j * m;
+  const bool act = j < nb;
+  T y[NMAX];  // the column of B, then of Y, then of X
+  if (act) {
+    const T* bc = Bs + phb + (size_t)j * nm + (b_trans ? c * n : c);
+    const int bs = b_trans ? 1 : m;
+#pragma unroll
+    for (int r = 0; r < NMAX; ++r)
+      if (EXACT || r < n) y[r] = bc[r * bs];
+  }
+  __syncthreads();  // every column read before X overwrites B
+  if (act) {
+    const T* l = Ls + (size_t)j * sl +
+                 (int)((reinterpret_cast<uintptr_t>(l_src(j)) / sizeof(T)) %
+                       (16 / sizeof(T)));
+    // forward: L y = b. The empty asm keeps a row's loads of L from
+    // being hoisted above the rows before it: the chain is serial, and
+    // loads in flight for every row would take the registers that let
+    // three CTAs share an SM.
+#pragma unroll
+    for (int r = 0; r < NMAX; ++r) {
+      if (EXACT || r < n) {
+        asm volatile("" ::: "memory");
+        T s = y[r];
+#pragma unroll
+        for (int k = 0; k < r; ++k) s -= l[r * n + k] * y[k];
+        y[r] = div_zs(s, l[r * n + r]);
+      }
+    }
+    // backward: L' x = y
+#pragma unroll
+    for (int r = NMAX - 1; r >= 0; --r) {
+      if (EXACT || r < n) {
+        asm volatile("" ::: "memory");
+        T s = y[r];
+#pragma unroll
+        for (int k = r + 1; k < NMAX; ++k)
+          if (EXACT || k < n) s -= l[k * n + r] * y[k];
+        y[r] = div_zs(s, l[r * n + r]);
+      }
+    }
+    T* xc = Bs + (size_t)j * nm + c;  // X row-major, from the slot's start
+#pragma unroll
+    for (int r = 0; r < NMAX; ++r)
+      if (EXACT || r < n) xc[r * m] = y[r];
+  }
+  __syncthreads();
+  T* xb = X + (size_t)blk0 * nm;
+  for (int t = tid; t < nb * nm; t += nthr) xb[t] = Bs[t];
 }
 
 template <typename T>
@@ -583,18 +702,50 @@ int launch_chol(const void* A, void* L, int N, int n, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, int NMAX, int MMAX, bool EXACT>
+int launch_cho_solve_n(const void* L, const void* B, void* X, int N, int n,
+                       int m, int l_inner, int l_outer, int b_trans,
+                       void* stream) {
+  auto smem_of = [&](int nbc) {
+    return (size_t)nbc * cho_l_slot<T>(n * n) * sizeof(T) +
+           align16(((size_t)nbc * n * m + 16 / sizeof(T)) * sizeof(T));
+  };
+  // 32 blocks a CTA where that leaves room for two CTAs an SM (every width
+  // in float32), at most 512 threads a CTA
+  int nbc = 32;
+  while (nbc > 1 && (smem_of(nbc) > kTwoPerSm || nbc * m > 512)) --nbc;
+  const size_t smem = smem_of(nbc);
+  const cudaError_t err = cudaFuncSetAttribute(
+      cho_solve_kernel<T, NMAX, MMAX, EXACT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = (nbc * m + 31) / 32 * 32;
+  const int blocks = (N + nbc - 1) / nbc;
+  cho_solve_kernel<T, NMAX, MMAX, EXACT><<<blocks, threads, smem,
+                                           (cudaStream_t)stream>>>(
+      (const T*)L, (const T*)B, (T*)X, N, n, m, l_inner, l_outer, b_trans,
+      nbc);
+  return (int)cudaGetLastError();
+}
+
+// L's blocks: l_inner consecutive blocks of n*n a lane, lanes l_outer
+// elements apart; B row-major (N, n, m), or (b_trans) the transpose of a
+// contiguous (N, m, n); X row-major (N, n, m).
 template <typename T>
 int launch_cho_solve(const void* L, const void* B, void* X, int N, int n,
-                     int m, void* stream) {
-  if (m < 1 || m > 32) return (int)cudaErrorInvalidValue;
-  int blocks, warps;
-  size_t smem;
-  const int err = warp_per_block_grid<T>(N, n, &blocks, &warps, &smem);
-  if (err != (int)cudaSuccess) return err;
+                     int m, int l_inner, int l_outer, int b_trans,
+                     void* stream) {
+  if (n < 1 || n > kMaxN || m < 1 || m > 32 || N < 0 || l_inner < 1 ||
+      l_outer < 0)
+    return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
-  cho_solve_kernel<T><<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
-      (const T*)L, (const T*)B, (T*)X, N, n, m);
-  return (int)cudaGetLastError();
+  // the rocket's (nw, nrx) = (17, 13) compiled in; other widths the kernel
+  // bounded by 32
+  if (n == 17 && m == 13)
+    return launch_cho_solve_n<T, 17, 13, true>(L, B, X, N, n, m, l_inner,
+                                               l_outer, b_trans, stream);
+  return launch_cho_solve_n<T, kMaxN, 32, false>(L, B, X, N, n, m, l_inner,
+                                                 l_outer, b_trans, stream);
 }
 
 template <typename T>
@@ -769,13 +920,17 @@ int scvx_chol_f64(const void* A, void* L, int N, int n, void* stream) {
 }
 
 int scvx_cho_solve_f32(const void* L, const void* B, void* X, int N, int n,
-                       int m, void* stream) {
-  return launch_cho_solve<float>(L, B, X, N, n, m, stream);
+                       int m, int l_inner, int l_outer, int b_trans,
+                       void* stream) {
+  return launch_cho_solve<float>(L, B, X, N, n, m, l_inner, l_outer, b_trans,
+                                 stream);
 }
 
 int scvx_cho_solve_f64(const void* L, const void* B, void* X, int N, int n,
-                       int m, void* stream) {
-  return launch_cho_solve<double>(L, B, X, N, n, m, stream);
+                       int m, int l_inner, int l_outer, int b_trans,
+                       void* stream) {
+  return launch_cho_solve<double>(L, B, X, N, n, m, l_inner, l_outer, b_trans,
+                                  stream);
 }
 
 int scvx_fused_chol_solve_f32(const void* A, const void* B, void* X, int N,

@@ -129,25 +129,82 @@ def cho_solve_plain(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return smallla.cho_solve(L, B)
 
 
+def _folded(shape, strides):
+    """The axes (size, stride) with the size-1 ones dropped and each run of
+    axes that address one evenly spaced sequence folded into one."""
+    out = []
+    for size, stride in zip(shape, strides):
+        if size == 1:
+            continue
+        if out and out[-1][1] == stride * size:
+            out[-1] = (out[-1][0] * size, stride)
+        else:
+            out.append((size, stride))
+    return out
+
+
+def _axis_stride(t: torch.Tensor, dim: int, want: int) -> bool:
+    return t.shape[dim] == 1 or t.stride(dim) == want
+
+
+def cho_solve_layout(L: torch.Tensor, B: torch.Tensor):
+    """How the cho_solve kernel reads ``L`` and ``B`` in place, as
+    ``(l_inner, l_outer, b_trans)``: L's blocks are n x n row-major, l_inner
+    consecutive ones a lane and lanes l_outer elements apart (the IPM's
+    ``chol_Hw[:, :-1]``); B's blocks follow each other at a stride of n*m,
+    row-major (``b_trans`` 0) or the transpose of a row-major m x n block
+    (``b_trans`` 1: the IPM's ``E.transpose(-1, -2)``). Raises ValueError
+    for any other layout; nothing is copied."""
+    n, m = L.shape[-1], B.shape[-1]
+    if L.dim() < 2 or L.shape[-2] != n or B.shape[:-1] != L.shape[:-1] \
+            or not 1 <= n <= 32 or not 1 <= m <= 32:
+        raise ValueError(f"cho_solve: shapes {tuple(L.shape)}, "
+                         f"{tuple(B.shape)}")
+    nn = n * n
+    if not (_axis_stride(L, -1, 1) and _axis_stride(L, -2, n)):
+        raise ValueError(f"cho_solve: L's blocks are not row-major (strides "
+                         f"{L.stride()})")
+    lead = _folded(L.shape[:-2], L.stride()[:-2])
+    if not lead:
+        l_inner, l_outer = 1, nn
+    elif lead[-1][1] != nn or len(lead) > 2:
+        raise ValueError(f"cho_solve: L's blocks are not {nn} elements "
+                         f"apart within a lane (strides {L.stride()})")
+    else:
+        l_inner = lead[-1][0]
+        l_outer = lead[0][1] if len(lead) == 2 else l_inner * nn
+    if _axis_stride(B, -1, 1) and _axis_stride(B, -2, m):
+        b_trans = 0
+    elif _axis_stride(B, -2, 1) and _axis_stride(B, -1, n):
+        b_trans = 1
+    else:
+        raise ValueError(f"cho_solve: B's blocks are neither row-major nor "
+                         f"transposed row-major (strides {B.stride()})")
+    b_lead = _folded(B.shape[:-2], B.stride()[:-2])
+    if b_lead and (len(b_lead) > 1 or b_lead[0][1] != n * m):
+        raise ValueError(f"cho_solve: B's blocks are not {n * m} elements "
+                         f"apart (strides {B.stride()})")
+    if l_outer >= 2 ** 31 or B.numel() >= 2 ** 31:
+        raise ValueError("cho_solve: 2^31 elements or more")
+    return l_inner, l_outer, b_trans
+
+
 def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve (L_i L_i') X_i = B_i; L (..., n, n), B (..., n, m), n, m <= 32.
 
-    ``B`` may be a transposed view (E' of the IPM's E): it is made
-    contiguous here, so the kernel reads each row of B as m consecutive
-    values."""
+    The kernel reads both in place in the layouts ``cho_solve_layout``
+    takes (the IPM's slices of one factor and transposed E, F among them)
+    and refuses any other; X is row-major."""
     if L.device.type == "cpu" and B.device.type == "cpu":
         return cho_solve_plain(L, B)
     sfx = _build.suffix("cho_solve", L, B)
+    l_inner, l_outer, b_trans = cho_solve_layout(L, B)
     n, m = L.shape[-1], B.shape[-1]
-    if (L.dim() < 2 or L.shape[-2] != n or B.shape[:-1] != L.shape[:-1]
-            or not 1 <= n <= 32 or not 1 <= m <= 32):
-        raise ValueError(f"cho_solve: shapes {tuple(L.shape)}, "
-                         f"{tuple(B.shape)}")
-    Lc, Bc = L.contiguous(), B.contiguous()
-    X = torch.empty_like(Bc)
-    err = _fn("cho_solve", sfx, 3, 3)(
-        Lc.data_ptr(), Bc.data_ptr(), X.data_ptr(), Lc.numel() // (n * n),
-        n, m, torch.cuda.current_stream(L.device).cuda_stream)
+    X = torch.empty(B.shape, dtype=B.dtype, device=B.device)
+    err = _fn("cho_solve", sfx, 3, 6)(
+        L.data_ptr(), B.data_ptr(), X.data_ptr(), B.numel() // (n * m), n, m,
+        l_inner, l_outer, b_trans,
+        torch.cuda.current_stream(L.device).cuda_stream)
     _build.check(err, "cho_solve")
     cho_solve.launches += 1
     return X

@@ -300,6 +300,118 @@ def test_cho_solve_vec_plain_matches_jax(n):
     _close(xt, xj, 1e-10, 1e-12, "x")
 
 
+def _zero_dividend_grid(dtype):
+    """Every pair (s, d) with s and d in {+-0, +-1, +-the smallest
+    subnormal, +-max, +-inf, NaN}, d also over seeded random finite values
+    of every magnitude."""
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    fi = np.finfo(np_dt)
+    sub = np.nextafter(np_dt(0), np_dt(1))
+    special = np.array([0.0, -0.0, 1.0, -1.0, sub, -sub, fi.max, -fi.max,
+                        np.inf, -np.inf, np.nan], dtype=np_dt)
+    rng = np.random.default_rng(16)
+    exps = rng.uniform(np.log10(float(fi.tiny)), np.log10(float(fi.max)), 200)
+    rand = (rng.choice([-1.0, 1.0], 200) * 10.0 ** exps).astype(np_dt)
+    s = torch.from_numpy(special)
+    d = torch.from_numpy(np.concatenate([special, rand]))
+    return torch.meshgrid(s, d, indexing="ij")
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN equal to NaN (whatever its payload)."""
+    ib = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return (a.view(ib) == b.view(ib)) | (torch.isnan(a) & torch.isnan(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_zero_dividend_quotient_is_the_division_bit_for_bit(dtype):
+    """The identity that csrc/divide.cuh's div_zs (the cho_solve and
+    discretize kernels' division) relies on: s * copysign(1, d) where s is
+    +-0 and |d| > 0, else s / d, is s / d bit for bit for every s and d
+    (signed zeros, subnormals, infinities, NaN), so a zero dividend can skip
+    the division's slow path and keep the first design's results."""
+    S, D = _zero_dividend_grid(dtype)
+    q = torch.where((S == 0) & (D.abs() > 0),
+                    S * torch.copysign(torch.ones_like(D), D), S / D)
+    assert bool(_same_bits(q, S / D).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_reciprocal_zero_dividend_form_is_not_the_division(dtype):
+    """The form s == 0 ? s * (1 / d) : s / d is NOT the division: at the
+    smallest subnormal d, 1 / d overflows to infinity and 0 * inf is NaN
+    where 0 / d is a signed zero. Recorded so that nobody brings it back."""
+    S, D = _zero_dividend_grid(dtype)
+    q = torch.where(S == 0, S * (1 / D), S / D)
+    bad = ~_same_bits(q, S / D)
+    assert bool(bad.any())
+    assert bool((S[bad] == 0).all()) and bool(torch.isinf(1 / D[bad]).all())
+    assert bool(torch.isnan(q[bad]).all())
+    assert bool((D[bad].abs() == D[bad].abs().min()).all())
+
+
+def _ipm_cho_solve_inputs(rng, Bl, Kn, nw, nrx):
+    """chol_Hw (Bl, Kn, nw, nw) lower factors and E (Bl, Kn-1, nrx, nw)
+    with exact-zero rows and entries, as the unfused factorize holds them."""
+    L = np.linalg.cholesky(_spd_blocks(rng, (Bl, Kn), nw))
+    E = rng.standard_normal((Bl, Kn - 1, nrx, nw))
+    E[:, :, 3:5] = 0.0
+    E[rng.random(E.shape) < 0.25] = 0.0
+    return L, E
+
+
+def test_cho_solve_plain_matches_jax_in_the_ipm_layout():
+    """``cuda_kkt.cho_solve`` on CPU tensors (its plain version, which the
+    kernel is held to on the card) given what ``ops/ipm.py`` passes:
+    ``chol_Hw[:, :-1]`` of a (B, K, 17, 17) factor and ``E.transpose(-1,
+    -2)`` of a (B, K-1, 13, 17) E with exact-zero rows, against JAX's
+    ``smallla.cho_solve`` on the same numpy inputs, f64 round-off (rtol
+    1e-10). The kernel reads both views in place: ``cho_solve_layout``
+    takes them as K-1 blocks a lane, lanes K*17*17 apart, B transposed."""
+    rng = np.random.default_rng(17)
+    Bl, Kn, nw, nrx = 2, K, 17, 13
+    L, E = _ipm_cho_solve_inputs(rng, Bl, Kn, nw, nrx)
+    Lt, Et = _t(L), _t(E)
+    Lv, Bv = Lt[:, :-1], Et.transpose(-1, -2)
+    assert not Lv.is_contiguous() and not Bv.is_contiguous()
+    assert cuda_kkt.cho_solve_layout(Lv, Bv) == (Kn - 1, Kn * nw * nw, 1)
+    Xt = cuda_kkt.cho_solve(Lv, Bv)
+    Xj = jla.cho_solve(jnp.asarray(L[:, :-1]),
+                       jnp.asarray(np.swapaxes(E, -1, -2)))
+    _close(Xt, Xj, 1e-10, 1e-10 * float(np.abs(np.asarray(Xj)).max()), "X")
+    assert cuda_kkt.cho_solve.launches == 0
+
+
+def test_cho_solve_layout_refuses_what_the_kernel_does_not_read():
+    """The layouts the cho_solve kernel reads in place (the IPM's slices
+    of one factor, B row-major or transposed, contiguous tensors) and the
+    ones its wrapper refuses on the card instead of copying: B's columns
+    strided, L's blocks column-major, lanes of B not evenly spaced, L's
+    blocks repeated by a zero stride. A pure function of shapes and
+    strides, so the CPU decides it as the card does."""
+    rng = np.random.default_rng(18)
+    L, E = _ipm_cho_solve_inputs(rng, 3, 5, 17, 13)
+    Lt, Et = _t(L), _t(E)
+    Bt = Et.transpose(-1, -2)
+    lay = cuda_kkt.cho_solve_layout
+    assert lay(Lt[:, :-1], Bt) == (4, 5 * 289, 1)
+    assert lay(Lt[:, 1:], Bt) == (4, 5 * 289, 1)
+    assert lay(Lt[:, :-1], Bt.contiguous()) == (4, 5 * 289, 0)
+    assert lay(Lt[:, :-1].contiguous(), Bt) == (12, 12 * 289, 1)
+    assert lay(Lt[:1, :-1], Bt[:1]) == (4, 4 * 289, 1)
+    assert lay(Lt[0, 0], Bt[0, 0]) == (1, 289, 1)
+    wide = torch.zeros(3, 4, 17, 26, dtype=F64)
+    for what, Lb, Bb in (
+            ("B's columns strided", Lt[:, :-1], wide[..., ::2]),
+            ("L's blocks column-major", Lt[:, :-1].transpose(-1, -2), Bt),
+            ("B's lanes not evenly spaced", Lt[:, :-1],
+             torch.zeros(3, 5, 17, 13, dtype=F64)[:, :-1]),
+            ("L's blocks repeated by a zero stride",
+             Lt[:1, :1].expand(3, 4, 17, 17), Bt)):
+        with pytest.raises(ValueError):
+            lay(Lb, Bb)
+
+
 def test_tridiag_factor_plain_matches_jax_at_penalized_widths():
     """``tridiag_factor_plain`` (what the tridiag_factor kernel, with the
     rocket's nrx = 13 compiled in, is held to on the card) against JAX's
