@@ -57,7 +57,10 @@ from beside this file and never imports JAX or the JAX package). Phases:
      the fused route's three kernels,
      both as the main path's kernels; chol and cho_solve block by block;
      fused_chol_solve on synthetic SPD batches at the vehicle's shape and at
-     the penalized path's stage-Hessian shape), in float32 and float64: the
+     the penalized path's stage-Hessian shape; and the generic-width
+     instantiations, chol at GENERIC_CHOL and fused_chol_solve at
+     GENERIC_FCS, on synthetic SPD blocks with a quarter of the lower
+     triangle exact zeros), in float32 and float64: the
      kernel must be finite wherever success in its dtype is guaranteed, and
      there its residuals within their backward-error bounds and its error
      against the float64 plain version within the forward error those
@@ -92,7 +95,8 @@ from beside this file and never imports JAX or the JAX package). Phases:
      version's time and, where one exists, one PyTorch library call's time
      (chol and cho_solve also at a B=256 batch of blocks, for the record,
      and cho_solve on the penalized path's call as the IPM makes it;
-     fused_chol_solve at both of its phase-3 shapes; tridiag_solve also on
+     fused_chol_solve at both of its phase-3 shapes; chol at its generic
+     width beside the first design's time there; tridiag_solve also on
      the penalized path, and it and fused_factor at the point mass's
      shapes; tridiag_factor also in float64; cho_solve_vec at every path's
      shapes); and the synchronized
@@ -107,9 +111,10 @@ penalized or pointmass) and ``--cpu-replan PATH`` (CPU only) and
 ``--card-plain-factor PATH`` are the child modes of phase 4,
 ``--profile-cho-solve PATH`` that of phase 5.
 ``--save-captures PATH`` runs every phase and also saves the captured
-inputs of tridiag_factor, cho_solve_vec, cho_solve (the replan and
-penalized paths' calls as the IPM makes them) and discretize_lanes (the
-first and a late call of every path) (a few hundred MB) for
+inputs of tridiag_factor, cho_solve_vec, chol and cho_solve (the replan
+and penalized paths' calls, cho_solve's as the IPM makes them) and
+discretize_lanes (the first and a late call of every path) (a few hundred
+MB) for
 ``scripts/kernel_ab.py``, ``scripts/kernel_stamps.py`` and
 ``scripts/disc_stamps.py``.
 """
@@ -150,6 +155,14 @@ REPLAN_CHECK_REG = 1e-6
 PENALTY_W = 0.1
 PM_K = 30                       # BASELINE config 1: point mass, K=30
 VEHICLE = (300, 13, 2)          # tests/test_pallas_kkt.py:28, N, n, m
+# the generic-width instantiations of chol and fused_chol_solve (n not
+# compiled in), held in phase 3 at a ragged N (N, n) and (N, n, m), and
+# chol timed there in phase 5 beside the first design's time at the same
+# shape, f32, from scripts/kernel_ab.py (its synthetic input: a quarter of
+# the lower triangle exact zeros; NVIDIA H100 80GB HBM3, 700 W)
+GENERIC_CHOL = (9001, 20)
+GENERIC_FCS = (4099, 20, 7)
+GENERIC_CHOL_FIRST_DESIGN_MS = 0.0379
 
 KERNELS = {
     "fused_factor": dict(
@@ -1014,6 +1027,20 @@ PIVOT_ROW = 5
 TRIFAC_PIVOTS = (4, 6, 13, 3)   # tridiag_factor batch (B, N, n), node
 
 
+def _sparse_spd(g, N: int, n: int):
+    """N SPD n x n blocks, float64 on the CPU, from the generator g: a
+    quarter of the lower triangle exact zeros (mirrored), the diagonal
+    shifted so the smallest eigenvalue is 1."""
+    import torch
+
+    f64 = torch.float64
+    R = torch.randn(N, n, n, generator=g, dtype=f64)
+    zero = torch.tril(torch.rand(N, n, n, generator=g, dtype=f64) < 0.25, -1)
+    R = torch.tril(R, -1).masked_fill(zero, 0.0)
+    A = R + _T(R)
+    return A + (1.0 - torch.linalg.eigvalsh(A)[:, :1, None]) * torch.eye(n, dtype=f64)
+
+
 def _drop(X, g, axes):
     """X without index g along each of ``axes``."""
     import torch
@@ -1790,6 +1817,15 @@ def main(save_captures: str | None = None) -> int:
         (v_shape, v_args), (s_shape, s_args) = synth6.items()
         checks.append(("fused_chol_solve", f"synthetic SPD {v_shape}", v_args,
                        f"synthetic SPD {s_shape}", [s_args]))
+        # the generic-width kernels (n not compiled in) at a ragged N
+        Ag = _sparse_spd(gen, GENERIC_CHOL[0], GENERIC_CHOL[1]).cuda()
+        Nf, nf, mf = GENERIC_FCS
+        fg_args = (_sparse_spd(gen, Nf, nf).cuda(), torch.randn(
+            Nf, nf, mf, generator=gen, dtype=torch.float64).cuda())
+        checks.append(("chol", f"synthetic SPD {GENERIC_CHOL}, generic width",
+                       (Ag,), None, None))
+        checks.append(("fused_chol_solve", f"synthetic SPD {GENERIC_FCS}, "
+                       "generic width", fg_args, None, None))
         for name, first_when, first, late_when, late in checks:
             # every call of the late iteration, but every third for
             # tridiag_solve (its dense forward bound is costly; 3 is prime
@@ -1797,6 +1833,8 @@ def main(save_captures: str | None = None) -> int:
             if name == "tridiag_solve":
                 late = late[::3]
             for when, calls in ((first_when, [first]), (late_when, late)):
+                if when is None:   # a synthetic check of one call
+                    continue
                 if not calls or calls[0] is None:
                     raise PhaseError(f"{name}: no captured call for {when}")
                 before = wrappers[name].launches
@@ -2001,7 +2039,7 @@ def main(save_captures: str | None = None) -> int:
 
         if save_captures:
             # the inputs scripts/kernel_ab.py holds tridiag_factor,
-            # cho_solve_vec, cho_solve and discretize_lanes to a parent's
+            # cho_solve_vec, chol, cho_solve and discretize_lanes to a parent's
             # kernels on (on the card); a discretize call as (model name,
             # params fields, X, U, sigma, substeps, foh)
             late = LATE_LOCKSTEP
@@ -2027,6 +2065,13 @@ def main(save_captures: str | None = None) -> int:
                     for when, a in (("first", c.first),
                                     ("late", c.late[0] if c.late else None))
                     if a is not None],
+                "chol": [
+                    (f"{where}, {when}", a)
+                    for where, c in (("replan path", rcaps["chol"]),
+                                     ("penalized path", pcaps["chol"]))
+                    for when, a in [("first", c.first)] + [
+                        (f"late call {i}", x) for i, x in enumerate(c.late)
+                        if i % 4 == 0]],
                 "tridiag_factor": [("penalized path, first", pcaps[
                     "tridiag_factor"].first)] + [
                     (f"penalized path, SCvx iteration {late}, call {i}", a)
@@ -2040,7 +2085,7 @@ def main(save_captures: str | None = None) -> int:
                                      (pcaps, "penalized path"),
                                      (mcaps, "point-mass path"))]},
                 save_captures)
-            print(f"captured inputs of tridiag_factor, cho_solve_vec, "
+            print(f"captured inputs of tridiag_factor, cho_solve_vec, chol, "
                   f"cho_solve and discretize_lanes saved to {save_captures}")
 
         # ---- 5. times at each path's shapes -----------------------------------
@@ -2112,6 +2157,8 @@ def main(save_captures: str | None = None) -> int:
                       vlaunches["fused_chol_solve"], "vehicle"))
         timed.append(("fused_chol_solve", tuple(a.float() for a in s_args),
                       None, "penalized path's stage Hessian shape"))
+        # chol's generic-width kernel (n = 20 not compiled in), f32
+        timed.append(("chol", (Ag.float(),), None, "generic width"))
         for name, args, n_launch, where in timed:
             ms, plain_ms, lib_ms, rec = _time_kernel(
                 name, args, wrappers[name], plains[name], library.get(name))
@@ -2121,12 +2168,18 @@ def main(save_captures: str | None = None) -> int:
                                 "max_abs_err": max_abs[name],
                                 **{k: v for k, v in rec.items()
                                    if k not in ("mbytes", "gflop")}})
+            first = ""
+            if where == "generic width":
+                first = (f", the first design "
+                         f"{GENERIC_CHOL_FIRST_DESIGN_MS} ms at this shape "
+                         f"(scripts/kernel_ab.py)")
             print(f"time {name} ({where}) at "
                   f"{[tuple(a.shape) for a in args if torch.is_tensor(a)]}: "
                   f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                   f"{rec['bound_ms']:.5f} ms by {rec['bound_by']} "
-                  f"({rec['mbytes']:.3f} MB, {rec['gflop']:.5f} GFLOP); {card}")
+                  f"({rec['mbytes']:.3f} MB, {rec['gflop']:.5f} GFLOP){first}; "
+                  f"{card}")
 
         # the A/B: one discretize call at B=256 (the main path's first),
         # synchronized, the kernel against the plain version, in turns

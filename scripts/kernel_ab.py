@@ -10,8 +10,9 @@ DIR holds the other commit's ``successiveconvexification_tpu_torch/csrc``
 archive`` under ``build/``. The script builds DIR/kkt.cu and DIR/disc.cu
 with the port's nvcc flags into libraries of their own under ``build/`` and
 loads them with ctypes beside the port's own. For ``tridiag_factor``,
-``cho_solve_vec``, ``cho_solve`` and ``discretize_lanes`` (or the ones
-``--kernels`` names) it runs both builds on the same inputs:
+``cho_solve_vec``, ``cho_solve``, ``discretize_lanes``, ``chol`` and
+``fused_chol_solve`` (or the ones ``--kernels`` names) it runs both builds
+on the same inputs:
 
   - synthetic, made from a seeded ``torch.Generator``: the models' widths
     (tridiag_factor (256, 49, 13), the penalized path's; cho_solve_vec
@@ -19,25 +20,35 @@ loads them with ctypes beside the port's own. For ``tridiag_factor``,
     13) and (12,544, 17, 13), B row-major and as the transpose of E-like
     blocks with a quarter exact zeros, L read with the penalized path's
     lane stride; discretize_lanes at the main path's (256, 50) and the
-    point mass's (256, 30), and once with drag and one NaN node) and one
-    generic width (tridiag_factor and cho_solve_vec n = 20, cho_solve (64,
-    20, 7)), in float32 and float64;
+    point mass's (256, 30), and once with drag and one NaN node; chol
+    (50, 17) and (12,800, 17), the replan and penalized paths'; and
+    fused_chol_solve (300, 13, 2), its vehicle's, and (12,800, 17, 13))
+    and one generic width (tridiag_factor and cho_solve_vec n = 20,
+    cho_solve and fused_chol_solve (64, 20, 7), chol (64, 20)), in float32
+    and float64. The chol and fused_chol_solve blocks have a quarter of
+    their lower triangle exact zeros, one an infinite pivot and one a
+    negative pivot; each kernel also runs at a ragged N, one that is not a
+    multiple of the blocks a warp or a CTA takes (chol (9,001, 20),
+    fused_chol_solve (4,099, 17, 13) and (4,099, 20, 7));
   - captured, float32, from ``python3 chip_smoke.py --save-captures PATH``
     (the penalized path's tridiag_factor calls, every path's cho_solve_vec
-    calls, the penalized and replan paths' cho_solve calls as the IPM
-    makes them, and every path's discretize calls).
+    calls, the penalized and replan paths' chol calls and cho_solve calls
+    as the IPM makes them, and every path's discretize calls).
 
 The other build's kernels are called as that commit's wrappers called them
-(its cho_solve on row-major copies of L and B). For each call it prints
-whether the outputs are equal bit for bit (NaN where NaN), and the two
+(cho_solve with L and B read in place, given as layout arguments). For
+each call it prints whether the outputs are equal bit for bit (NaN where
+NaN), and the two
 kernels' device times in the order other, this, this, other (chip_smoke's
 ``_time_ms``: CUDA events around 20 launches) beside the call's bound
 (chip_smoke's ``_work``). Then ptxas's registers, spills and stack for both
 builds' instantiations of these kernels, and the dynamic shared memory a
-CTA and the resident warps an SM this build's launchers give at these
-shapes. Exits 1 if an output differs anywhere but in a lane where this
-build's factor holds an infinite diagonal entry (the other commit may treat
-an infinite pivot as a breakdown).
+CTA and the resident warps an SM each build's launchers give at the
+paths' shapes (chol and fused_chol_solve: the most a CTA takes; their
+launchers size the grid by occupancy). Exits 1 if an output differs
+anywhere but in a lane where this build's factor holds an infinite
+diagonal entry (the other commit may treat an infinite pivot as a
+breakdown).
 """
 
 from __future__ import annotations
@@ -56,13 +67,16 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 
-KERNELS = ("tridiag_factor", "cho_solve_vec", "cho_solve", "discretize_lanes")
+KERNELS = ("tridiag_factor", "cho_solve_vec", "cho_solve", "discretize_lanes",
+           "chol", "fused_chol_solve")
 SOURCE = {"tridiag_factor": "kkt", "cho_solve_vec": "kkt", "cho_solve": "kkt",
-          "discretize_lanes": "disc"}
+          "discretize_lanes": "disc", "chol": "kkt", "fused_chol_solve": "kkt"}
 DEVICE_FN = {"tridiag_factor": "tridiag_factor_kernel",
              "cho_solve_vec": "cho_solve_vec_kernel",
              "cho_solve": "cho_solve_kernel",
-             "discretize_lanes": "discretize_kernel"}
+             "discretize_lanes": "discretize_kernel",
+             "chol": "chol_kernel",
+             "fused_chol_solve": "fused_chol_solve_kernel"}
 
 
 def build_other(csrc: Path, name: str = "kkt", tag: str = "ab_other"):
@@ -133,6 +147,8 @@ def other_wrappers(libs):
 
     from successiveconvexification_tpu_torch.ops import _build
 
+    from successiveconvexification_tpu_torch.ops import cuda_kkt
+
     lib = libs.get("kkt")
 
     def tridiag_factor(D, O):
@@ -158,21 +174,45 @@ def other_wrappers(libs):
         return x
 
     def cho_solve(L, B):
-        # the first design's wrapper: row-major copies of both
+        # the redesigned wrapper's call (L and B read in place)
         sfx = _build.suffix("cho_solve", L, B)
-        L, B = L.contiguous(), B.contiguous()
+        l_inner, l_outer, b_trans = cuda_kkt.cho_solve_layout(L, B)
         n, m = L.shape[-1], B.shape[-1]
-        X = torch.empty_like(B)
-        err = _build.declare(lib, f"scvx_cho_solve_{sfx}", 3, 3)(
+        X = torch.empty(B.shape, dtype=B.dtype, device=B.device)
+        err = _build.declare(lib, f"scvx_cho_solve_{sfx}", 3, 6)(
             L.data_ptr(), B.data_ptr(), X.data_ptr(), B.numel() // (n * m), n,
-            m, torch.cuda.current_stream().cuda_stream)
+            m, l_inner, l_outer, b_trans,
+            torch.cuda.current_stream().cuda_stream)
         _build.check(err, "other cho_solve")
+        return X
+
+    def chol(A):
+        sfx = _build.suffix("chol", A)
+        A = A.contiguous()
+        n = A.shape[-1]
+        L = torch.empty_like(A)
+        err = _build.declare(lib, f"scvx_chol_{sfx}", 2, 2)(
+            A.data_ptr(), L.data_ptr(), A.numel() // (n * n), n,
+            torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "other chol")
+        return L
+
+    def fused_chol_solve(A, B):
+        sfx = _build.suffix("fused_chol_solve", A, B)
+        A, B = A.contiguous(), B.contiguous()
+        n, m = A.shape[-1], B.shape[-1]
+        X = torch.empty_like(B)
+        err = _build.declare(lib, f"scvx_fused_chol_solve_{sfx}", 3, 3)(
+            A.data_ptr(), B.data_ptr(), X.data_ptr(), A.numel() // (n * n),
+            n, m, torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "other fused_chol_solve")
         return X
 
     out = {}
     if lib is not None:
         out.update(tridiag_factor=tridiag_factor, cho_solve_vec=cho_solve_vec,
-                   cho_solve=cho_solve)
+                   cho_solve=cho_solve, chol=chol,
+                   fused_chol_solve=fused_chol_solve)
     if "disc" in libs:
         out["discretize_lanes"] = disc_entry(libs["disc"])
     return out
@@ -221,6 +261,29 @@ def synthetic():
                           f"B {'transposed' if trans else 'row-major'}, L "
                           f"{'strided' if B > 1 else 'contiguous'}, 25% zeros",
                           make))
+    # chol and fused_chol_solve on SPD blocks with a quarter of the lower
+    # triangle exact zeros (mirrored; the diagonal shifted so the block
+    # stays positive definite), block 1 with an infinite pivot and block 3
+    # indefinite; chol reads only the lower triangle, so the upper one is
+    # noise
+    def sparse_spd(N, n, noisy_upper):
+        A = cs._sparse_spd(g, N, n)
+        A[1, 5, 5] = float("inf")
+        A[3] -= (torch.linalg.eigvalsh(A[3])[0] + 1.0) * torch.eye(n, dtype=f64)
+        if noisy_upper:
+            A = torch.tril(A) + torch.triu(
+                torch.randn(N, n, n, generator=g, dtype=f64), 1)
+        return A
+
+    for N, n in ((50, 17), (12800, 17), (64, 20), (9001, 20)):
+        calls.append(("chol", f"synthetic {N} x {n}, 25% zeros, an infinite "
+                      "and a negative pivot", plain(sparse_spd(N, n, True))))
+    for N, n, m in ((300, 13, 2), (12800, 17, 13), (64, 20, 7),
+                    (4099, 17, 13), (4099, 20, 7)):
+        calls.append(("fused_chol_solve", f"synthetic ({N}, {n}, {m}), 25% "
+                      "zeros, an infinite and a negative pivot",
+                      plain(sparse_spd(N, n, False),
+                            torch.randn(N, n, m, generator=g, dtype=f64))))
     # discretize_lanes at the main path's and the point mass's shapes (the
     # initial guess, as the first SCvx iteration sees it, and a perturbed
     # one with drag and a NaN node)
@@ -340,33 +403,82 @@ def _a16(b: int) -> int:
 DISC_DIMS = {"Rocket6DoF": (14, 3), "PointMass3DoF": (7, 3)}
 
 
-def launch_shape(kernel: str, this: bool):
+def _slot(nn: int, v: int) -> int:
+    """csrc/kkt.cu cho_l_slot: a block's n*n elements and room for its
+    phase, rounded to 16 bytes."""
+    return -(-(nn + v - 1) // v) * v
+
+
+def _xcol(n: int, v: int) -> int:
+    """csrc/kkt.cu xcol_len: a column exchange buffer's values."""
+    return -(-n // v) * v
+
+
+def fcs_shape(n: int, m: int, es: int, nbc: int = 32):
+    """(threads, dynamic shared memory) of a fused_chol_solve CTA of nbc
+    blocks (csrc/kkt.cu launch_fused_chol_solve_n)."""
+    v = 16 // es
+    threads = max(-(-nbc * m // 32), min(nbc, 16)) * 32
+    return threads, (nbc * _slot(n * n, v) * es
+                     + _a16((nbc * n * m + v) * es)
+                     + threads // 32 * 2 * _xcol(n, v) * es + _a16(nbc * 4))
+
+
+def fcs_nmax(n: int, m: int, es: int) -> int:
+    """The most blocks a fused_chol_solve CTA takes."""
+    nbc = 32
+    while nbc > 1 and (fcs_shape(n, m, es, nbc)[1] > 112 * 1024
+                       or fcs_shape(n, m, es, nbc)[0] > 512):
+        nbc -= 1
+    return nbc
+
+
+def launch_shape(kernel: str):
     """(threads, dynamic shared memory) a CTA of a kernel instantiation at
-    the paths' shapes: this build's launchers (csrc/kkt.cu, csrc/disc.cu)
-    or, ``this`` False, the first designs' (one warp a block, four a CTA;
-    four lanes a CTA with lane_smem rounded to 32 values). None where the
-    width is not compiled in."""
+    the paths' shapes, as the launchers of csrc/kkt.cu and csrc/disc.cu
+    give them, or, for a first design of chol, fused_chol_solve or
+    cho_solve (its instantiation named by its type alone), that design's
+    (one warp a block, four a CTA, at n = 17). chol and fused_chol_solve:
+    their largest CTA (four warps; nmax blocks). None where the width is
+    not compiled in."""
     es = 8 if "<double" in kernel else 4
     v = 16 // es
+    # a first design's instantiation has the type alone (chol_kernel<float>);
+    # a redesign's has its widths, and where they are not compiled in
+    # (false) the shape is the call's
+    first = re.search(r"_kernel<(float|double)>", kernel) is not None
+    if "fused_chol_solve_kernel" in kernel:
+        if first:   # the first design at the stage-Hessian shape
+            return 128, 4 * 17 * 17 * es
+        mt = re.search(r"fused_chol_solve_kernel<\w+, (\d+), (\d+), true>",
+                       kernel)
+        if not mt:
+            return None
+        n, mm = int(mt.group(1)), int(mt.group(2))
+        return fcs_shape(n, mm, es, fcs_nmax(n, mm, es))
+    if "chol_kernel" in kernel:
+        if first:
+            return 128, 4 * 17 * 17 * es
+        mt = re.search(r"chol_kernel<\w+, (\d+), true>", kernel)
+        if not mt:
+            return None
+        n = int(mt.group(1))
+        return 128, 4 * (2 * _slot(n * n, v) + 2 * _xcol(n, v)) * es
     if "discretize_kernel" in kernel:
         nx, nu = next(d for k, d in DISC_DIMS.items() if k in kernel)
-        if this:
-            ld = -(-nx // v) * v
-            ld += 0 if (ld // v) % 2 else v
-            lane = max((2 * nx + nu + 4) * ld, nx * nx + 2 * nx * nu + 2 * nx)
-            lane = -(-lane // v) * v
-        else:
-            lane = -(-max(nx * nx + nx * nu + 3 * nx,
-                          nx * nx + 2 * nx * nu + 2 * nx) // 32) * 32
+        ld = -(-nx // v) * v
+        ld += 0 if (ld // v) % 2 else v
+        lane = max((2 * nx + nu + 4) * ld, nx * nx + 2 * nx * nu + 2 * nx)
+        lane = -(-lane // v) * v
         return 128, 4 * lane * es
     if "cho_solve_kernel" in kernel:
-        if not this:   # the first design at the rocket's n = 17
+        if first:   # the first design at the rocket's n = 17
             return 128, 4 * 17 * 17 * es
         m = re.search(r"cho_solve_kernel<\w+, (\d+), (\d+), true>", kernel)
         if not m:
             return None
         n, mm = int(m.group(1)), int(m.group(2))
-        slot = -(-(n * n + 2 * v - 2) // v) * v
+        slot = _slot(n * n, v)
         for nbc in range(32, 0, -1):
             smem = nbc * slot * es + _a16((nbc * n * mm + v) * es)
             if smem <= 112 * 1024 and nbc * mm <= 512:
@@ -394,7 +506,7 @@ def report_builds(logs) -> list[str]:
         for nm, line in ptxas_lines(log):
             text = f"ptxas ({tag}) {nm}: {line}"
             m = re.search(r"Used (\d+) registers", line)
-            shape = launch_shape(nm, tag == "this build") if m else None
+            shape = launch_shape(nm) if m else None
             if shape:
                 threads, smem = shape
                 text += (f"; {threads} threads and {smem} B of dynamic shared "
@@ -407,14 +519,20 @@ def report_builds(logs) -> list[str]:
 
 def dynamic_smem(name, args) -> int:
     """This build's launchers' dynamic shared memory a CTA (csrc/kkt.cu,
-    csrc/disc.cu)."""
+    csrc/disc.cu; chol and fused_chol_solve: their largest CTA)."""
     ts = _tensors(args)
     esize = ts[0].element_size()
     two_per_sm = 112 * 1024
     if name == "discretize_lanes":
         dyn = "Rocket6DoF" if args[0].nx == 14 else "PointMass3DoF"
-        return launch_shape(f"discretize_kernel<{'double' if esize == 8 else 'float'}, {dyn}>", True)[1]
+        return launch_shape(f"discretize_kernel<{'double' if esize == 8 else 'float'}, {dyn}>")[1]
     n = ts[0].shape[-1]
+    if name == "chol":
+        return launch_shape(f"chol_kernel<{'double' if esize == 8 else 'float'}"
+                            f", {n}, true>")[1]
+    if name == "fused_chol_solve":
+        m = ts[1].shape[-1]
+        return fcs_shape(n, m, esize, fcs_nmax(n, m, esize))[1]
     if name == "tridiag_factor":
         nn = n * n
         for ch in (4, 3, 2, 1):
@@ -424,7 +542,7 @@ def dynamic_smem(name, args) -> int:
         return smem
     if name == "cho_solve":
         m, v = ts[1].shape[-1], 16 // esize
-        slot = -(-(n * n + 2 * v - 2) // v) * v
+        slot = _slot(n * n, v)
         for nbc in range(32, 0, -1):
             smem = nbc * slot * esize + _a16((nbc * n * m + v) * esize)
             if smem <= two_per_sm and nbc * m <= 512:

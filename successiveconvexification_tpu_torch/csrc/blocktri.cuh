@@ -1,7 +1,7 @@
 // Device functions of the block-tridiagonal Cholesky and of the small
-// Cholesky factor and solves, shared by the fused factorization
-// (fused_factor.cu) and kkt.cu (chol, cho_solve, tridiag_factor,
-// fused_chol_solve).
+// Cholesky factor, shared by the fused factorization (fused_factor.cu) and
+// kkt.cu (tridiag_factor; chol and fused_chol_solve factor with kkt.cu's
+// lean form of warp_chol_rows, warp_chol_lower).
 //
 // For the SPD block-tridiagonal M with diagonal blocks D_k and couplings
 // M[k-1, k] = O_{k-1}, step k of the factorization is
@@ -10,13 +10,17 @@
 //                              L[a][m] C[m][c]) / L[a][a]
 //   S_k = D_k - C_k' C_k       lower triangle: S[a][c] = D[a][c] - sum_{t
 //                              ascending} C[t][a] C[t][c]
-//   L_k = chol(S_k)            warp_chol's order (below)
+//   L_k = chol(S_k)            left-looking sums: L[a][j] = (S[a][j] -
+//                              sum_{k<j, ascending} L[a][k] L[j][k]) / d_j,
+//                              a true division by d_j = sqrt(the pivot
+//                              S[j][j] - sum_{k<j} L[j][k]^2)
 // Every matrix is n x n, row-major. warp_tri_step runs a step with its
 // working set in registers of one warp and warp_chol_rows as its Cholesky
 // (tridiag_factor's warp and the fused factorization's recurrence warp;
-// the fused producers factor H_k with warp_chol_rows too). These orders
-// are those of the first designs, which worked in shared memory; the
-// kernels keep them, so their results stay those designs' bit for bit.
+// the fused producers factor H_k with warp_chol_rows too, and the chol
+// kernels with its lean form). These orders are those of the first
+// designs, which worked in shared memory one column at a time; the kernels
+// keep them, so their results stay those designs' bit for bit.
 
 #pragma once
 
@@ -35,97 +39,24 @@ __device__ __forceinline__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
 }
 
-// In-place lower Cholesky of the n x n row-major block `a` in shared memory
-// by the whole warp (lane li), left-looking, column by column; the upper
-// triangle is not read. Returns true (on every lane) when a pivot is <= 0
-// or NaN (LAPACK potrf's test, smallla.chol's); `a` then holds garbage. An
-// infinite pivot factors on, as potrf's does: an infinite diagonal entry,
-// zeros below it, and the rest the factor of the block without that row
-// and column.
-template <typename T>
-__device__ bool warp_chol(T* a, int n, int li) {
-  const unsigned full = 0xffffffffu;
-  bool bad = false;  // warp-uniform: every lane tests the same pivot
-  for (int j = 0; j < n; ++j) {
-    // lane i >= j: s_i = A[i][j] - sum_{k<j} L[i][k] L[j][k]; columns < j of
-    // the lower part of a already hold L
-    T s = T(0);
-    if (li >= j && li < n) {
-      s = a[li * n + j];
-      for (int k = 0; k < j; ++k) s -= a[li * n + k] * a[j * n + k];
-    }
-    const T piv = __shfl_sync(full, s, j);
-    bad = bad || !(piv > T(0));
-    const T d = sqrt(piv);
-    // lane i only rewrites its own entry of column j, which no other lane
-    // reads in this step
-    if (li == j) {
-      a[j * n + j] = d;
-    } else if (li > j && li < n) {
-      a[li * n + j] = s / d;
-    }
-    __syncwarp();
-  }
-  return bad;
-}
-
-// Copy the lower triangle of the n x n block `src` into `a` (coalesced).
-template <typename T>
-__device__ __forceinline__ void warp_load_lower(const T* src, T* a, int n,
-                                                int li) {
-  for (int t = li; t < n * n; t += 32) {
-    const int r = t / n, c = t - r * n;
-    if (c <= r) a[t] = src[t];
-  }
-}
-
-// Write the factor in `a` to `dst` with zeros above the diagonal, or NaN
-// everywhere when `bad`.
-template <typename T>
-__device__ __forceinline__ void warp_store_factor(const T* a, T* dst, int n,
-                                                  bool bad, int li) {
-  const T nan = quiet_nan<T>();
-  for (int t = li; t < n * n; t += 32) {
-    const int r = t / n, c = t - r * n;
-    dst[t] = bad ? nan : (c <= r ? a[t] : T(0));
-  }
-}
-
-// Lane li < m solves (l l') x = b for column li of the n x m row-major
-// right-hand side; l (lower, in shared memory) is read by every lane alike.
-template <typename T>
-__device__ __forceinline__ void lane_cho_solve_col(const T* l, const T* Bb,
-                                                   T* Xb, int n, int m,
-                                                   int li) {
-  T y[kMaxN];
-  // forward: L y = b
-  for (int r = 0; r < n; ++r) {
-    T s = Bb[r * m + li];
-    for (int k = 0; k < r; ++k) s -= l[r * n + k] * y[k];
-    y[r] = s / l[r * n + r];
-  }
-  // backward: L' x = y
-  for (int r = n - 1; r >= 0; --r) {
-    T s = y[r];
-    for (int k = r + 1; k < n; ++k) s -= l[k * n + r] * y[k];
-    y[r] = s / l[r * n + r];
-  }
-  for (int r = 0; r < n; ++r) Xb[r * m + li] = y[r];
-}
-
 // Lower Cholesky factor of an n x n SPD matrix by one warp, n <= NMAX <= 32,
 // lane a holding row a in registers (lanes >= n shadow row 0): right-
 // looking, at column j lane j's pivot comes by one shuffle, each lane
 // scales its own L[a][j], and L[c][j] comes from lane c by one shuffle
-// per column c > j. Every value takes warp_chol's operations in its order.
-// The code has no branch that depends on the lane: the lanes compute every
-// entry and keep the ones on and below the diagonal by selects, so with n
-// a compile-time constant the whole factor is straight-line code.
-// Returns true on every lane when a pivot is <= 0 or NaN (warp_chol's
-// test, smallla.chol's, LAPACK potrf's): an infinite pivot factors on, to
-// an infinite diagonal entry and zeros below it, as potrf's does. On a
-// breakdown `row` holds garbage; else, on return, row[b] = L[a][b] for
-// b <= a.
+// per column c > j. Every value takes the header's operations in their
+// order: L[a][c] starts from S[a][c] and loses L[a][j] L[c][j] at each
+// column j < c, ascending, as the left-looking sum does, and the division
+// is a true one by sqrt of the pivot. The code has no branch that depends
+// on the lane: the lanes compute every entry and keep the ones on and
+// below the diagonal by selects, so with n a compile-time constant the
+// whole factor is straight-line code. A lane's entries above the diagonal
+// are divided too and thrown away; a zero among them, as any zero
+// dividend, takes the division's slow path (kkt.cu's lean form of this
+// factor, warp_chol_lower, avoids it).
+// Returns true on every lane when a pivot is <= 0 or NaN (smallla.chol's
+// test, LAPACK potrf's): an infinite pivot factors on, to an infinite
+// diagonal entry and zeros below it, as potrf's does. On a breakdown `row`
+// holds garbage; else, on return, row[b] = L[a][b] for b <= a.
 template <typename T, int NMAX>
 __device__ __forceinline__ bool warp_chol_rows(T (&row)[NMAX], int n,
                                                int li) {
@@ -161,15 +92,15 @@ __device__ __forceinline__ bool warp_chol_rows(T (&row)[NMAX], int n,
 //   C_k = L_{k-1}^-1 O_{k-1}     (Op == nullptr: C_k = 0)
 //   S_k = D_k - C_k' C_k         (Dk: D_k, lower triangle read)
 //   L_k = chol(S_k)              (warp_chol_rows)
-// Every value takes the operations of the header's step and of warp_chol in
-// their order (and so their rounding). Lp: L_{k-1} in shared memory
+// Every value takes the operations of the header's step in their order
+// (and so their rounding). Lp: L_{k-1} in shared memory
 // (lower triangle and diagonal read, by every lane alike); Op: O_{k-1} and
 // Dk: D_k, in shared memory. Out: C_k in sC (n x n) and L_k's lower triangle and
 // diagonal in sL, which may be Lp (every read of Lp comes first); when a
 // pivot is <= 0 or NaN (warp_chol_rows), sL holds NaN wherever written, so
 // every later step of the lane comes out NaN too. Where C_dst and L_dst (device
 // memory) are not null, C_k goes there too, and L_k with zeros above the
-// diagonal, or NaN everywhere on a breakdown (warp_store_factor's form):
+// diagonal, or NaN everywhere on a breakdown (the chol kernel's form):
 // each lane stores its own column or row as soon as it has it. Returns the
 // breakdown flag, the same on every lane. The warp syncs on entry and
 // before it returns.

@@ -36,8 +36,10 @@
 //     factors it there (warp_chol_rows: a block with a pivot <= 0 or NaN
 //     comes out entirely NaN, as smallla.chol's); the factor goes through
 //     shared memory to chol_Hw_k; lane c then solves column c of
-//     H_k^-1 [E_k' | F_{k-1}'] (all 26 columns in one pass,
-//     lane_cho_solve_col's order, the factor read by every lane alike) and
+//     H_k^-1 [E_k' | F_{k-1}'] (all 26 columns in one pass, the first
+//     design's order: forward s = b_r, k ascending, a true division by
+//     L[r][r]; backward s = y_r, k = r+1.. ascending, the division; the
+//     factor read by every lane alike) and
 //     forms column c of O_{k-1} = F_{k-1} XE_k in registers. Last, with
 //     unit k-1's E_{k-1} and XE_{k-1} from its slot, it forms D_{k-1} =
 //     E_{k-1} XE_{k-1} + F_{k-1} XF_{k-1} + diag(dpq_{k-1}) in the first
@@ -281,9 +283,9 @@ __global__ void __launch_bounds__(32 * (kMaxProducers + 1),
       if (has_e)
         for (int i = li; i < EW; i += 32) uE[i] = sE[i];
       // column cl of H_k^-1 [E_k' | F_{k-1}'] by lane cl % 32 (one pass
-      // while 2 nrx <= 32): forward and backward substitution
-      // (lane_cho_solve_col's order), the factor read by every lane alike;
-      // a broken factor is NaN, and so is every column
+      // while 2 nrx <= 32): forward and backward substitution (the order
+      // of the note at the top), the factor read by every lane alike; a
+      // broken factor is NaN, and so is every column
       for (int c0 = 0; c0 < m; c0 += 32) {
         const int cl = c0 + li;
         const int col = cl < m ? cl : 0;

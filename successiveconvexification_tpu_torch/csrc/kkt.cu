@@ -68,26 +68,44 @@
 // chol: lower Cholesky factor of N independent n x n SPD blocks.
 //   Replaces pallas_kkt.py _chol_kernel (pallas_kkt.chol: the stage-Hessian
 //   factor of the unfused factorize, ipm.py:208; n = nw = 17, N = K = 50 on
-//   the single-lane replan path). Bound on the H100: bytes (the lower
-//   triangle in, n^2 values out, n^3/3 flops a block); at the
-//   replan shapes launch latency sets its time.
-//   Design: one warp per block, several warps per CTA, the ragged edge a
-//   bounds check (the TPU padded with identity blocks). The warp copies the
-//   block's lower triangle into shared memory with consecutive lanes on
-//   consecutive addresses and factors it column by column in place
-//   (left-looking):
-//   lane i forms s_i = A[i][j] - sum_k L[i][k] L[j][k] for its row, the
-//   pivot s_j comes from lane j by a shuffle, and lane i writes
-//   L[i][j] = s_i / sqrt(s_j); one __syncwarp per column. The block goes
-//   back with zeros above the diagonal, again coalesced. Breakdown follows
+//   the single-lane replan path, N = B K = 12,800 on the penalized path).
+//   Bound on the H100: bytes (the lower triangle in, n^2 values out, n^3/3
+//   flops a block); at the replan shapes launch latency sets its time.
+//   What a block waits on is its chain of n pivots, each a shuffle, a
+//   square root and a division, and what the batch waits on is issue slots:
+//   a row a lane spends about a thousand warp instructions a 17 x 17 block.
+//   Design: one warp a block, one row a lane, in registers: lane a loads
+//   row a of the staged block with the upper triangle filled from the lower
+//   one (row[b] = A[a][min(a, b)]: only the lower triangle is read, as
+//   cholesky_ex does), and the warp factors it with warp_chol_lower, the
+//   lean form of blocktri.cuh's warp_chol_rows: no selects (the upper
+//   triangle is left garbage), a zero dividend's quotient taken as the
+//   signed zero it is (off the division's slow path), and each column
+//   handed on through shared memory as 16-byte broadcasts instead of one
+//   shuffle an entry (at n = 17 in float32, 70 shared-memory accesses a
+//   block on the pipe that also serves the shuffles, where the shuffles were
+//   136; at 12,800 blocks on an H100, 0.0235 ms with the shuffles, 0.0208
+//   with the exchange). Its operations on every kept value
+//   are the first design's (left-looking sums, k ascending, a true division
+//   by the square root of the pivot) in their order, so the results are
+//   that design's bit for bit. The rocket's n = 17 is compiled in (the
+//   whole factor straight-line code); other widths take the kernel bounded
+//   by 32. Each warp owns a run of consecutive blocks and stages the next
+//   one by cp.async (16-byte copies at the source's alignment phase, the
+//   ragged ends by element) into a two-slot ring while the current one
+//   factors. Row a goes back into the slot (L on and below the diagonal,
+//   zeros above it) and the block leaves from the slot with coalesced
+//   16-byte stores. The grid is one wave: the runs are as long as the
+//   resident warps (the occupancy API) need to cover N; where N is small
+//   (the replan path's 50) every block has its own warp and a CTA holds
+//   fewer warps, so the CTAs spread over the SMs. Breakdown follows
 //   ops/smallla.py chol (LAPACK potrf's test): a block with a pivot <= 0 or
 //   NaN comes out ENTIRELY NaN (the IPM masks lanes by finiteness, so a
-//   broken block that is finite in part would pass). An infinite pivot factors
-//   on, as potrf's does: an infinite diagonal entry, zeros below it, and
-//   the factor of the rest. A NaN or infinite entry of L below the diagonal
-//   feeds the pivot of its row, which then comes out NaN or -inf, so the
-//   pivot test catches such inputs in the lower triangle; the upper
-//   triangle is never read (as cholesky_ex).
+//   broken block that is finite in part would pass). An infinite pivot
+//   factors on, as potrf's does: an infinite diagonal entry, zeros below
+//   it, and the factor of the rest. A NaN or infinite entry of L below the
+//   diagonal feeds the pivot of its row, which then comes out NaN or -inf,
+//   so the pivot test catches such inputs in the lower triangle.
 //
 // ---------------------------------------------------------------------------
 // cho_solve: (L L') X = B for N independent blocks, B and X n x m (m <= 32).
@@ -121,7 +139,8 @@
 //   in registers); other widths take the kernel bounded by 32. Every value
 //   takes the first design's operations in their order (forward: s = b_r,
 //   k ascending, the division by L[r][r]; backward: s = y_r, k = r+1..
-//   ascending, the division), with the division by div_zs (divide.cuh:
+//   ascending, the division; lane_cho_solve, which fused_chol_solve
+//   shares), with the division by div_zs (divide.cuh:
 //   the same bits, a zero dividend off the slow path; E and F hold many
 //   exact zeros). A NaN or infinite factor passes through as in the first
 //   design. X goes back through shared memory, coalesced. The ragged edge
@@ -150,9 +169,10 @@
 //   ahead, so a step never waits on device memory. L_{k-1} and C_k stay in
 //   shared memory between steps. The TPU carried L_{k-1} in VMEM scratch
 //   between grid steps along N; here the loop along N runs inside the warp.
-//   Every value takes the first design's operations (blocktri.cuh's step,
-//   then warp_chol) in their order, so the results are that design's bit
-//   for bit wherever no block breaks down: the penalized path's f64
+//   Every value takes the first design's operations (blocktri.cuh's step:
+//   left-looking sums, k ascending, a true division by the square root of
+//   the pivot) in their order, so the results are that design's bit for
+//   bit wherever no block breaks down: the penalized path's f64
 //   card-vs-CPU gate has no margin against a change of order. Breakdown
 //   follows smallla.blocktridiag_factor: a block with a pivot <= 0 or NaN
 //   comes out entirely NaN, and so does every later block of its lane (a NaN
@@ -164,14 +184,25 @@
 //   n x m (n, m <= 32), the factor and both solves in one launch.
 //   Replaces pallas_kkt.py _fused_chol_solve_kernel (fused_chol_solve, which
 //   the JAX package runs only in tests/test_pallas_kkt.py, as a layout test
-//   vehicle). Bound on the H100: bytes (A's lower triangle and B read once,
-//   X written once; n^3/3 + 2 n^2 m flops a block).
-//   Design: `chol` and `cho_solve` below composed in one warp per block: the
-//   warp copies A's lower triangle into shared memory, factors it there, and
-//   lane c solves column c against the factor, which never leaves shared
-//   memory. A block whose factor breaks down (`chol`'s test) comes out
-//   entirely NaN; at an infinite pivot the factor goes on, and the solves
-//   give that unknown 0, as smallla.cho_solve does.
+//   vehicle: N = 300, (n, m) = (13, 2)). Bound on the H100: bytes (A's
+//   lower triangle and B read once, X written once; n^3/3 + 2 n^2 m flops
+//   a block).
+//   Design: `chol`'s factor and `cho_solve`'s solve in one CTA, the factor
+//   never leaving shared memory. A CTA takes nbc consecutive blocks and
+//   stages their A and B by cp.async at the sources' alignment phase. Its
+//   warps factor the blocks as `chol` does (mirrored rows,
+//   warp_chol_lower), each L back into its A slot and one breakdown flag a
+//   block in shared memory; then one (block, column) pair a lane solves
+//   with cho_solve's operations (lane_cho_solve, the one device function
+//   both kernels call). X leaves through shared memory, coalesced. The CTA
+//   has enough warps for both phases: ceil(nbc m / 32) for the solve, and
+//   one a block to factor up to 16 (so none factors more than two
+//   blocks); nbc follows N, so the vehicle's 300 blocks spread over all
+//   SMs and the 12,800 of a sweep's stage Hessians fill whole waves. The vehicle's (13, 2) and the
+//   stage-Hessian shape (17, 13) are compiled in; other widths take the
+//   kernel bounded by 32. A block whose factor breaks down (`chol`'s test)
+//   comes out entirely NaN; at an infinite pivot the factor goes on, and
+//   the solves give that unknown 0, as smallla.cho_solve does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -459,32 +490,21 @@ __global__ void __launch_bounds__(32)
   }
 }
 
+// p's offset in elements from 16-byte alignment (its phase).
 template <typename T>
-__global__ void chol_kernel(const T* __restrict__ A, T* __restrict__ L, int N,
-                            int n) {
-  extern __shared__ unsigned char smem_raw[];
-  const int warp = threadIdx.x / 32;
-  const int li = threadIdx.x % 32;
-  const int blk = blockIdx.x * (blockDim.x / 32) + warp;
-  if (blk >= N) return;  // the whole warp leaves together
-  const size_t nn = (size_t)n * n;
-  T* a = reinterpret_cast<T*>(smem_raw) + (size_t)warp * nn;
-  warp_load_lower(A + blk * nn, a, n, li);
-  __syncwarp();
-  const bool bad = warp_chol(a, n, li);
-  warp_store_factor(a, L + blk * nn, n, bad, li);
+__device__ __forceinline__ int phase_of(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) / sizeof(T)) % (16 / sizeof(T)));
 }
 
 // dst_slot (shared, 16-byte aligned) <- src (global), `count` elements by
-// threads li = 0.. of nl, placed at dst_slot + ph where ph is src's offset
-// in elements from 16-byte alignment, so that 16-byte copies fit wherever
-// the range allows; the ragged ends go by element. Returns ph. Not waited
-// for.
+// threads li = 0.. of nl, placed at dst_slot + ph where ph is src's phase,
+// so that 16-byte copies fit wherever the range allows; the ragged ends go
+// by element. Returns ph. Not waited for.
 template <typename T>
 __device__ __forceinline__ int stage_aligned(T* dst_slot, const T* src,
                                              int count, int li, int nl) {
   constexpr int V = 16 / sizeof(T);
-  const int ph = (int)((reinterpret_cast<uintptr_t>(src) / sizeof(T)) % V);
+  const int ph = phase_of(src);
   T* dst = dst_slot + ph;
   const int head = min(count, (V - ph) % V);
   const int nv = (count - head) / V;
@@ -496,12 +516,208 @@ __device__ __forceinline__ int stage_aligned(T* dst_slot, const T* src,
   return ph;
 }
 
+// dst (global) <- slot + ph (shared, the slot 16-byte aligned), `count`
+// elements by threads li = 0.. of nl: 16-byte stores wherever dst's phase
+// is ph (stage_aligned's placement when source and destination share
+// their phase), the ragged ends by element; element stores, coalesced,
+// otherwise.
+template <typename T>
+__device__ __forceinline__ void store_aligned(T* dst, const T* slot, int ph,
+                                              int count, int li, int nl) {
+  constexpr int V = 16 / sizeof(T);
+  const T* src = slot + ph;
+  int head = count, nv = 0;
+  if (phase_of(dst) == ph) {
+    head = min(count, (V - ph) % V);
+    nv = (count - head) / V;
+  }
+  for (int i = li; i < head; i += nl) dst[i] = src[i];
+  for (int i = li; i < nv; i += nl)
+    reinterpret_cast<int4*>(dst + head)[i] =
+        reinterpret_cast<const int4*>(src + head)[i];
+  for (int i = head + nv * V + li; i < count; i += nl) dst[i] = src[i];
+}
+
 // Elements a block's slot of L holds in shared memory: n*n and room for
 // its phase (stage_aligned), rounded to 16 bytes.
 template <typename T>
 __host__ __device__ __forceinline__ int cho_l_slot(int nn) {
   constexpr int V = 16 / sizeof(T);
   return (nn + V - 1 + V - 1) / V * V;
+}
+
+// Values of a column exchange buffer of warp_chol_lower: NMAX rounded up
+// to 16 bytes.
+template <typename T, int NMAX>
+__host__ __device__ constexpr int xcol_len() {
+  return (NMAX + 16 / (int)sizeof(T) - 1) / (16 / (int)sizeof(T)) *
+         (16 / (int)sizeof(T));
+}
+
+// The lean form of blocktri.cuh's warp_chol_rows, for the chol kernels:
+// the same operations on every value on and below the diagonal, in their
+// order (so the same bits), and less around them. No select keeps the
+// entries above the diagonal, which come out garbage (no kept value reads
+// one); no guard skips the columns c >= n (none is read either); a zero
+// dividend divides d by itself instead, its quotient taken as the signed
+// zero s * copysign(1, d), which is s / d's bits for every d but a zero or
+// NaN one, that is, in every block that does not break down (divide.cuh),
+// so no quotient takes the division's slow path; and the column L[.][j]
+// goes through shared memory: each lane writes its entry into `xcol` (2
+// xcol_len values the warp owns, 16-byte aligned, the two halves taking
+// turns) and reads the entries c > j back as 16-byte broadcasts, where
+// warp_chol_rows shuffles them one by one.
+template <typename T, int NMAX>
+__device__ __forceinline__ bool warp_chol_lower(T (&row)[NMAX], int n, int li,
+                                                T* xcol) {
+  static_assert(NMAX >= 1 && NMAX <= kMaxN, "one lane a row");
+  constexpr int V = 16 / sizeof(T), NP = xcol_len<T, NMAX>();
+  const unsigned full = 0xffffffffu;
+  const int lc = li < n ? li : 0;
+  bool bad = false;  // warp-uniform: every lane tests the same pivot
+#pragma unroll
+  for (int j = 0; j < NMAX; ++j) {
+    if (j < n) {
+      const T piv = __shfl_sync(full, row[j], j);
+      bad = bad || !(piv > T(0));
+      const T d = sqrt(piv);
+      const bool z = row[j] == T(0);
+      const T q = (z ? d : row[j]) / d;
+      row[j] = lc == j ? d : (z ? row[j] * copysign(T(1), d) : q);
+      T* col = xcol + (j & 1) * NP;
+      if (li < NMAX) col[li] = row[j];  // L[li][j] where li >= j
+      __syncwarp();
+      T lcol[NP];  // L[c][j] for the 16-byte pieces that hold c > j
+#pragma unroll
+      for (int v = (j + 1) / V; v < NP / V; ++v) {
+        if constexpr (V == 4) {
+          const float4 w = reinterpret_cast<const float4*>(col)[v];
+          lcol[4 * v] = w.x;
+          lcol[4 * v + 1] = w.y;
+          lcol[4 * v + 2] = w.z;
+          lcol[4 * v + 3] = w.w;
+        } else {
+          const double2 w = reinterpret_cast<const double2*>(col)[v];
+          lcol[2 * v] = w.x;
+          lcol[2 * v + 1] = w.y;
+        }
+      }
+#pragma unroll
+      for (int c = j + 1; c < NMAX; ++c) row[c] -= row[j] * lcol[c];
+    }
+  }
+  return bad;
+}
+
+// The n x n block at `a` (shared memory, row-major, the lower triangle
+// read) factored in place by the warp, one row a lane: lane a loads row a
+// with the upper triangle mirrored from the lower (row[b] = A[a][min(a,
+// b)]; lanes >= n shadow row 0), factors with warp_chol_lower (xcol its
+// exchange buffer) and writes row a back: L on and below the diagonal and
+// zeros above it, or NaN everywhere when a pivot is <= 0 or NaN. Returns
+// that breakdown flag, on every lane; the warp syncs before it writes and
+// before it returns.
+template <typename T, int NMAX>
+__device__ __forceinline__ bool warp_factor_slot(T* a, int n, int li,
+                                                 T* xcol) {
+  const int lc = li < n ? li : 0;
+  T row[NMAX];
+#pragma unroll
+  for (int b = 0; b < NMAX; ++b)
+    row[b] = b < n ? a[lc * n + (b <= lc ? b : lc)] : T(0);
+  const bool bad = warp_chol_lower<T, NMAX>(row, n, li, xcol);
+  __syncwarp();  // every lane has read its row
+  if (li < n) {
+    const T nan = quiet_nan<T>();
+#pragma unroll
+    for (int b = 0; b < NMAX; ++b)
+      if (b < n) a[li * n + b] = bad ? nan : (b <= li ? row[b] : T(0));
+  }
+  __syncwarp();
+  return bad;
+}
+
+// Warps a chol CTA holds at most (fewer where N is small).
+constexpr int kCholWarps = 4;
+
+// Elements of shared memory a chol warp owns: its two slots and its
+// column exchange buffer.
+template <typename T, int NMAX>
+__host__ __device__ __forceinline__ int chol_warp_elems(int nn) {
+  return 2 * cho_l_slot<T>(nn) + 2 * xcol_len<T, NMAX>();
+}
+
+// One warp a run of bpw consecutive blocks (see the note at the top): the
+// warp's two slots take turns, block i + 1 staged by cp.async into one
+// while block i factors in the other and leaves from it.
+// NMAX: n when EXACT, else its bound, 32 (the launch dispatches).
+template <typename T, int NMAX, bool EXACT>
+__global__ void __launch_bounds__(kCholWarps * 32)
+    chol_kernel(const T* __restrict__ A, T* __restrict__ L, int N, int n,
+                int bpw) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (EXACT) n = NMAX;
+  const int warp = threadIdx.x / 32, li = threadIdx.x % 32;
+  const int nn = n * n, sl = cho_l_slot<T>(nn);
+  const int b0 = (blockIdx.x * (blockDim.x / 32) + warp) * bpw;
+  const int nb = min(bpw, N - b0);
+  if (nb <= 0) return;  // the whole warp leaves together
+  T* ring = reinterpret_cast<T*>(smem_raw) +
+            (size_t)warp * chol_warp_elems<T, NMAX>(nn);
+  T* xcol = ring + 2 * sl;
+  stage_aligned(ring, A + (size_t)b0 * nn, nn, li, 32);
+  cp_async_commit();
+  for (int i = 0; i < nb; ++i) {
+    const size_t off = (size_t)(b0 + i) * nn;
+    if (i + 1 < nb)
+      stage_aligned(ring + ((i + 1) & 1) * sl, A + off + nn, nn, li, 32);
+    cp_async_commit();      // (empty at the last block: the count stays)
+    cp_async_wait_prior();  // block i has landed
+    __syncwarp();
+    T* slot = ring + (i & 1) * sl;
+    const int ph = phase_of(A + off);
+    warp_factor_slot<T, NMAX>(slot + ph, n, li, xcol);
+    store_aligned(L + off, slot, ph, nn, li, 32);
+    __syncwarp();  // every lane is done with the slot block i + 2 refills
+  }
+}
+
+// (L L') y = b for one column by one thread, y holding b on entry and x on
+// return: forward s = b_r, k ascending, the division by L[r][r]; backward
+// s = y_r, k = r+1.. ascending, the division; each division by div_zs
+// (divide.cuh: the same bits, a zero dividend off the slow path). These
+// are the first designs' operations in their order. `l`: the block's L,
+// n x n row-major, in shared memory (its lower triangle and diagonal
+// read). cho_solve and fused_chol_solve both solve here.
+template <typename T, int NMAX, bool EXACT>
+__device__ __forceinline__ void lane_cho_solve(const T* l, int n,
+                                               T (&y)[NMAX]) {
+  // forward: L y = b. The empty asm keeps a row's loads of L from being
+  // hoisted above the rows before it: the chain is serial, and loads in
+  // flight for every row would take the registers that let three CTAs
+  // share an SM.
+#pragma unroll
+  for (int r = 0; r < NMAX; ++r) {
+    if (EXACT || r < n) {
+      asm volatile("" ::: "memory");
+      T s = y[r];
+#pragma unroll
+      for (int k = 0; k < r; ++k) s -= l[r * n + k] * y[k];
+      y[r] = div_zs(s, l[r * n + r]);
+    }
+  }
+  // backward: L' x = y
+#pragma unroll
+  for (int r = NMAX - 1; r >= 0; --r) {
+    if (EXACT || r < n) {
+      asm volatile("" ::: "memory");
+      T s = y[r];
+#pragma unroll
+      for (int k = r + 1; k < NMAX; ++k)
+        if (EXACT || k < n) s -= l[k * n + r] * y[k];
+      y[r] = div_zs(s, l[r * n + r]);
+    }
+  }
 }
 
 // One (block, column) pair a lane (see the note at the top). Shared
@@ -550,35 +766,8 @@ __global__ void __launch_bounds__(EXACT ? (32 * MMAX + 31) / 32 * 32 : 512,
   }
   __syncthreads();  // every column read before X overwrites B
   if (act) {
-    const T* l = Ls + (size_t)j * sl +
-                 (int)((reinterpret_cast<uintptr_t>(l_src(j)) / sizeof(T)) %
-                       (16 / sizeof(T)));
-    // forward: L y = b. The empty asm keeps a row's loads of L from
-    // being hoisted above the rows before it: the chain is serial, and
-    // loads in flight for every row would take the registers that let
-    // three CTAs share an SM.
-#pragma unroll
-    for (int r = 0; r < NMAX; ++r) {
-      if (EXACT || r < n) {
-        asm volatile("" ::: "memory");
-        T s = y[r];
-#pragma unroll
-        for (int k = 0; k < r; ++k) s -= l[r * n + k] * y[k];
-        y[r] = div_zs(s, l[r * n + r]);
-      }
-    }
-    // backward: L' x = y
-#pragma unroll
-    for (int r = NMAX - 1; r >= 0; --r) {
-      if (EXACT || r < n) {
-        asm volatile("" ::: "memory");
-        T s = y[r];
-#pragma unroll
-        for (int k = r + 1; k < NMAX; ++k)
-          if (EXACT || k < n) s -= l[k * n + r] * y[k];
-        y[r] = div_zs(s, l[r * n + r]);
-      }
-    }
+    lane_cho_solve<T, NMAX, EXACT>(
+        Ls + (size_t)j * sl + phase_of(l_src(j)), n, y);
     T* xc = Bs + (size_t)j * nm + c;  // X row-major, from the slot's start
 #pragma unroll
     for (int r = 0; r < NMAX; ++r)
@@ -589,28 +778,81 @@ __global__ void __launch_bounds__(EXACT ? (32 * MMAX + 31) / 32 * 32 : 512,
   for (int t = tid; t < nb * nm; t += nthr) xb[t] = Bs[t];
 }
 
-template <typename T>
-__global__ void fused_chol_solve_kernel(const T* __restrict__ A,
-                                        const T* __restrict__ B,
-                                        T* __restrict__ X, int N, int n,
-                                        int m) {
-  extern __shared__ unsigned char smem_raw[];
-  const int warp = threadIdx.x / 32;
-  const int li = threadIdx.x % 32;
-  const int blk = blockIdx.x * (blockDim.x / 32) + warp;
-  if (blk >= N) return;  // the whole warp leaves together
-  const size_t nn = (size_t)n * n;
-  T* a = reinterpret_cast<T*>(smem_raw) + (size_t)warp * nn;
-  warp_load_lower(A + blk * nn, a, n, li);
-  __syncwarp();
-  const bool bad = warp_chol(a, n, li);
-  T* Xb = X + (size_t)blk * n * m;
-  if (bad) {
-    const T nan = quiet_nan<T>();
-    for (int t = li; t < n * m; t += 32) Xb[t] = nan;
-    return;
+// Threads a fused_chol_solve CTA holds at most.
+constexpr int kFcsThreads = 512;
+
+// A CTA nbc consecutive blocks (see the note at the top). Shared memory:
+// nbc slots of A (then L), the CTA's B range (then X), a column exchange
+// buffer a warp (warp_chol_lower), a breakdown flag a block.
+// NMAX, MMAX: n and m when EXACT, else their bound, 32 (the launch
+// dispatches).
+template <typename T, int NMAX, int MMAX, bool EXACT>
+__global__ void __launch_bounds__(kFcsThreads,
+                                  EXACT && sizeof(T) == 4 ? 2 : 1)
+    fused_chol_solve_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                            T* __restrict__ X, int N, int n, int m, int nbc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (EXACT) {
+    n = NMAX;
+    m = MMAX;
   }
-  if (li < m) lane_cho_solve_col(a, B + (size_t)blk * n * m, Xb, n, m, li);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, li = tid % 32, nwarps = nthr / 32;
+  const int blk0 = blockIdx.x * nbc;
+  const int nb = min(nbc, N - blk0);
+  const int nn = n * n, nm = n * m;
+  const int sl = cho_l_slot<T>(nn);
+  T* As = reinterpret_cast<T*>(smem_raw);
+  T* Bs = As + (size_t)nbc * sl;  // 16-byte aligned, as sl is a multiple of V
+  T* xcols = reinterpret_cast<T*>(
+      reinterpret_cast<unsigned char*>(Bs) +
+      align16(((size_t)nbc * nm + 16 / sizeof(T)) * sizeof(T)));
+  int* bad = reinterpret_cast<int*>(xcols + nwarps * 2 * xcol_len<T, NMAX>());
+  const T* A0 = A + (size_t)blk0 * nn;
+  for (int j = warp; j < nb; j += nwarps)
+    stage_aligned(As + (size_t)j * sl, A0 + (size_t)j * nn, nn, li, 32);
+  const int phb = stage_aligned(Bs, B + (size_t)blk0 * nm, nb * nm, tid, nthr);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // factor: warp w the blocks w, w + nwarps, ..., L back into the A slot
+  for (int j = warp; j < nb; j += nwarps) {
+    const bool bj = warp_factor_slot<T, NMAX>(
+        As + (size_t)j * sl + phase_of(A0 + (size_t)j * nn), n, li,
+        xcols + warp * 2 * xcol_len<T, NMAX>());
+    if (li == 0) bad[j] = bj;
+  }
+  __syncthreads();
+
+  // solve: lane p of the CTA the pair (block p / m, column p % m)
+  const int j = tid / m, c = tid - j * m;
+  const bool act = j < nb;
+  T y[NMAX];  // the column of B, then of Y, then of X
+  if (act) {
+    const T* bc = Bs + phb + (size_t)j * nm + c;
+#pragma unroll
+    for (int r = 0; r < NMAX; ++r)
+      if (EXACT || r < n) y[r] = bc[r * m];
+  }
+  __syncthreads();  // every column read before X overwrites B
+  T* Xb = X + (size_t)blk0 * nm;
+  const int phx = phase_of(Xb);
+  if (act) {
+    if (bad[j]) {
+      const T nan = quiet_nan<T>();
+#pragma unroll
+      for (int r = 0; r < NMAX; ++r) y[r] = nan;
+    } else {
+      lane_cho_solve<T, NMAX, EXACT>(
+          As + (size_t)j * sl + phase_of(A0 + (size_t)j * nn), n, y);
+    }
+    T* xc = Bs + phx + (size_t)j * nm + c;  // X row-major at X's phase
+#pragma unroll
+    for (int r = 0; r < NMAX; ++r)
+      if (EXACT || r < n) xc[r * m] = y[r];
+  }
+  __syncthreads();
+  store_aligned(Xb, Bs, phx, nb * nm, tid, nthr);
 }
 
 // One warp a lane, one lane a CTA (see the note at the top). Shared
@@ -679,27 +921,62 @@ __global__ void __launch_bounds__(32)
   }
 }
 
-template <typename T>
-int warp_per_block_grid(int N, int n, int* blocks, int* warps,
-                          size_t* smem) {
-  // one warp per n x n block, its copy in shared memory; four warps a CTA
-  if (n < 1 || n > kMaxN || N < 0) return (int)cudaErrorInvalidValue;
-  *warps = 4;
-  *blocks = (N + *warps - 1) / *warps;
-  *smem = (size_t)(*warps) * n * n * sizeof(T);
-  return (int)cudaSuccess;
+// The card's SM count and the CTAs of `kernel` an SM holds at `threads`
+// threads and `smem` bytes of dynamic shared memory a CTA (at least 1).
+template <typename K>
+int sm_occupancy(K kernel, int threads, size_t smem, int* sms, int* ctas) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, threads,
+                                                        smem);
+  *ctas = max(*ctas, 1);
+  return (int)err;
+}
+
+template <typename T, int NMAX, bool EXACT>
+int launch_chol_n(const void* A, void* L, int N, int n, void* stream) {
+  const auto kernel = chol_kernel<T, NMAX, EXACT>;
+  const size_t smem_warp =
+      (size_t)chol_warp_elems<T, NMAX>(n * n) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(kCholWarps * smem_warp));
+  if (err != cudaSuccess) return (int)err;
+  // one wave: the runs as long as the resident warps need to cover N (the
+  // occupancy query once per width)
+  static int sms_of[kMaxN + 1], ctas_of[kMaxN + 1];
+  if (ctas_of[n] == 0) {
+    const int e = sm_occupancy(kernel, kCholWarps * 32,
+                               kCholWarps * smem_warp, &sms_of[n],
+                               &ctas_of[n]);
+    if (e != (int)cudaSuccess) {
+      ctas_of[n] = 0;
+      return e;
+    }
+  }
+  const int sms = sms_of[n];
+  const int slots = sms * ctas_of[n] * kCholWarps;
+  const int bpw = (N + slots - 1) / slots;
+  const int warps = (N + bpw - 1) / bpw;
+  // few warps: CTAs of fewer warps, spread over the SMs
+  const int wpc = min(kCholWarps, max(1, warps / sms));
+  const int blocks = (warps + wpc - 1) / wpc;
+  chol_kernel<T, NMAX, EXACT><<<blocks, wpc * 32, wpc * smem_warp,
+                                (cudaStream_t)stream>>>((const T*)A, (T*)L, N,
+                                                        n, bpw);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_chol(const void* A, void* L, int N, int n, void* stream) {
-  int blocks, warps;
-  size_t smem;
-  const int err = warp_per_block_grid<T>(N, n, &blocks, &warps, &smem);
-  if (err != (int)cudaSuccess) return err;
+  if (n < 1 || n > kMaxN || N < 0) return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
-  chol_kernel<T><<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
-      (const T*)A, (T*)L, N, n);
-  return (int)cudaGetLastError();
+  // the rocket's nw = 17 compiled in; other widths the kernel bounded by 32
+  if (n == 17) return launch_chol_n<T, 17, true>(A, L, N, n, stream);
+  return launch_chol_n<T, kMaxN, false>(A, L, N, n, stream);
 }
 
 template <typename T, int NMAX, int MMAX, bool EXACT>
@@ -748,19 +1025,66 @@ int launch_cho_solve(const void* L, const void* B, void* X, int N, int n,
                                                  l_outer, b_trans, stream);
 }
 
+template <typename T, int NMAX, int MMAX, bool EXACT>
+int launch_fused_chol_solve_n(const void* A, const void* B, void* X, int N,
+                              int n, int m, void* stream) {
+  const auto kernel = fused_chol_solve_kernel<T, NMAX, MMAX, EXACT>;
+  // warps for the solve's pairs, and one to factor each block up to the
+  // CTA's 16 (so none factors more than two)
+  auto threads_of = [&](int nbc) {
+    return max((nbc * m + 31) / 32, min(nbc, kFcsThreads / 32)) * 32;
+  };
+  auto smem_of = [&](int nbc) {
+    return (size_t)nbc * cho_l_slot<T>(n * n) * sizeof(T) +
+           align16(((size_t)nbc * n * m + 16 / sizeof(T)) * sizeof(T)) +
+           (size_t)threads_of(nbc) / 32 * 2 * xcol_len<T, NMAX>() * sizeof(T) +
+           align16((size_t)nbc * sizeof(int));
+  };
+  // at most 32 blocks a CTA, with room for two CTAs an SM
+  int nmax = 32;
+  while (nmax > 1 &&
+         (smem_of(nmax) > kTwoPerSm || threads_of(nmax) > kFcsThreads))
+    --nmax;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_of(nmax));
+  if (err != cudaSuccess) return (int)err;
+  // nbc from N: as few waves of CTAs as nmax allows, each wave full (the
+  // occupancy query once per shape), and where N is small one CTA an SM
+  // or more
+  static int cache_n = -1, cache_m = -1, sms = 0, ctas = 0;
+  if (cache_n != n || cache_m != m) {
+    const int e = sm_occupancy(kernel, threads_of(nmax), smem_of(nmax), &sms,
+                               &ctas);
+    if (e != (int)cudaSuccess) return e;
+    cache_n = n;
+    cache_m = m;
+  }
+  const int slots = sms * ctas;
+  const int waves = ((N + nmax - 1) / nmax + slots - 1) / slots;
+  const int nbc = min(nmax, (N + waves * slots - 1) / (waves * slots));
+  const int blocks = (N + nbc - 1) / nbc;
+  fused_chol_solve_kernel<T, NMAX, MMAX, EXACT><<<
+      blocks, threads_of(nbc), smem_of(nbc), (cudaStream_t)stream>>>(
+      (const T*)A, (const T*)B, (T*)X, N, n, m, nbc);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_fused_chol_solve(const void* A, const void* B, void* X, int N,
                             int n, int m, void* stream) {
-  if (m < 1 || m > 32) return (int)cudaErrorInvalidValue;
-  int blocks, warps;
-  size_t smem;
-  const int err = warp_per_block_grid<T>(N, n, &blocks, &warps, &smem);
-  if (err != (int)cudaSuccess) return err;
+  if (n < 1 || n > kMaxN || m < 1 || m > 32 || N < 0)
+    return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
-  fused_chol_solve_kernel<T><<<blocks, warps * 32, smem,
-                               (cudaStream_t)stream>>>(
-      (const T*)A, (const T*)B, (T*)X, N, n, m);
-  return (int)cudaGetLastError();
+  // its JAX test vehicle's (13, 2) and the stage-Hessian shape (17, 13)
+  // compiled in; other widths the kernel bounded by 32
+  if (n == 13 && m == 2)
+    return launch_fused_chol_solve_n<T, 13, 2, true>(A, B, X, N, n, m, stream);
+  if (n == 17 && m == 13)
+    return launch_fused_chol_solve_n<T, 17, 13, true>(A, B, X, N, n, m,
+                                                      stream);
+  return launch_fused_chol_solve_n<T, kMaxN, 32, false>(A, B, X, N, n, m,
+                                                        stream);
 }
 
 template <typename T, int NMAX, bool EXACT>

@@ -468,6 +468,108 @@ def test_plain_factors_factor_on_at_an_infinite_pivot():
     assert np.isfinite(_np(Ct)).all() and np.all(_np(Ct)[1, 4, j] == 0.0)
 
 
+def _column_order_chol(A, dt):
+    """The first chol design's order (one warp a block, in shared memory):
+    left-looking, column j at a time, s_i = A[i][j] - sum_{k<j, ascending}
+    L[i][k] L[j][k] for i >= j, the pivot s_j, d = sqrt(s_j), L[i][j] =
+    s_i / d. Only the lower triangle is read. Returns (L, breakdown)."""
+    n = A.shape[0]
+    L = [[dt(0)] * n for _ in range(n)]
+    bad = False
+    for j in range(n):
+        s = {}
+        for i in range(j, n):
+            v = dt(A[i, j])
+            for k in range(j):
+                v = v - L[i][k] * L[j][k]
+            s[i] = v
+        bad = bad or not s[j] > 0
+        d = np.sqrt(s[j])
+        L[j][j] = d
+        for i in range(j + 1, n):
+            L[i][j] = s[i] / d
+    return np.array(L, dtype=dt), bad
+
+
+def _row_order_chol(A, dt, lower_only):
+    """The row-a-lane factor: 32 lanes, lane a row a with the upper
+    triangle mirrored (row[b] = A[a][min(a, b)]; lanes >= n shadow row 0),
+    right-looking, every lane computing every entry: at column j the pivot
+    from lane j, q = row[j] / sqrt(pivot), then row[c] - L[a][j] L[c][j].
+    With selects that keep the upper triangle (csrc/blocktri.cuh
+    warp_chol_rows, tridiag_factor's and the fused factorization's) or,
+    ``lower_only``, with none, and a zero dividend's quotient the signed
+    zero s * copysign(1, d) while d / d is divided in its place
+    (csrc/kkt.cu warp_chol_lower, the chol kernels')."""
+    n = A.shape[0]
+    lcs = [a if a < n else 0 for a in range(32)]
+    rows = [[dt(A[lc, min(b, lc)]) for b in range(n)] for lc in lcs]
+    bad = False
+    for j in range(n):
+        piv = rows[j][j]
+        bad = bad or not piv > 0
+        d = np.sqrt(piv)
+        for row, lc in zip(rows, lcs):
+            z = lower_only and row[j] == 0
+            q = (d if z else row[j]) / d
+            if lower_only:
+                row[j] = d if lc == j else (
+                    row[j] * np.copysign(dt(1), d) if z else q)
+            else:
+                row[j] = d if lc == j else (q if lc > j else row[j])
+        lj = [row[j] for row in rows]
+        for c in range(j + 1, n):
+            for a, (row, lc) in enumerate(zip(rows, lcs)):
+                upd = row[c] - lj[a] * lj[c]
+                row[c] = upd if lower_only or lc >= c else row[c]
+    L = np.array([[rows[a][b] if b <= a else dt(0) for b in range(n)]
+                  for a in range(n)], dtype=dt)
+    return L, bad
+
+
+@pytest.mark.parametrize("dt", [np.float32, np.float64],
+                         ids=["float32", "float64"])
+def test_row_cholesky_order_is_the_column_order_bit_for_bit(dt):
+    """The invariant the chol and fused_chol_solve kernels rest on: the
+    row-a-lane, right-looking factor (the upper triangle mirrored; with
+    the selects, warp_chol_rows, and in the chol kernels' lean form
+    without them and with zero dividends off the division,
+    warp_chol_lower) takes the first
+    design's left-looking column order operation for operation, so they
+    give the same bits. numpy scalars in the working type (no fused
+    multiply-add: both orders contract the same products on the card),
+    seeded, at n = 17 (the stage Hessian) and 13, with a quarter of the
+    lower triangle exact zeros, an infinite pivot (it factors on) and an
+    indefinite block (a breakdown in all)."""
+    rng = np.random.default_rng(16)
+    ib = np.uint32 if dt == np.float32 else np.uint64
+    with np.errstate(all="ignore"):
+        for n in (17, 13):
+            for case in ("spd", "inf", "indefinite"):
+                R = np.tril(rng.standard_normal((n, n)), -1)
+                R[rng.random((n, n)) < 0.25] = 0.0
+                A = R + R.T
+                A += (1.0 - np.linalg.eigvalsh(A)[0]) * np.eye(n)
+                if case == "inf":
+                    A[5, 5] = np.inf
+                if case == "indefinite":
+                    A -= (np.linalg.eigvalsh(A)[0] + 1.0) * np.eye(n)
+                A = A.astype(dt)
+                Lc, bad_c = _column_order_chol(A, dt)
+                assert bad_c == (case == "indefinite")
+                for lower_only in (False, True):
+                    Lr, bad_r = _row_order_chol(A, dt, lower_only)
+                    assert bad_r == bad_c
+                    if bad_c:
+                        continue
+                    assert np.array_equal(Lc.view(ib), Lr.view(ib)), (
+                        n, case, lower_only)
+                assert np.isinf(Lc[5, 5]) == (case == "inf")
+                if not bad_c:
+                    assert np.isfinite(
+                        np.delete(np.delete(Lc, 5, 0), 5, 1)).all()
+
+
 def test_fused_chol_solve_plain_matches_pallas():
     """``cuda_kkt.fused_chol_solve`` on CPU tensors (its plain version: chol
     then cho_solve, which the CUDA kernel is held to on the card) against
