@@ -46,6 +46,38 @@ from beside this file and never imports JAX or the JAX package). Phases:
      the JAX package, the test vehicle of ``tests/test_pallas_kkt.py``:
      N=300 SPD 13 x 13 blocks, two right-hand sides, f64, against
      ``torch.linalg.solve`` within that test's tolerance;
+  2f. the seeded path (``bench.py``'s BENCH_MODE=seeded): the nominal
+     scenario solved once, cold (``scvx_solve``, its wall printed apart as
+     nominal_s), then ``solve_batch_seeded`` from it over the main path's
+     256 dispersions at the main path's settings (min bucket 32); launch
+     counters set to 0 around the nominal and around the sweep, matched
+     to the IPM's structure as in phase 2 (and one discretize for the
+     warm start); the nominal must converge, every converged lane meet
+     the solver's feasibility floor, the mean iterations a lane fall below
+     the cold main path's, and no lane converged on both paths have a
+     sigma 5e-2 or more above the cold one's (the JAX package's
+     ``tests/test_seeded.py`` gates; its two-sided sigma gate is held in
+     f64, phase 4: in f32 the cold path stops above the optimum in many
+     lanes);
+  2g. the atmospheric variants: (a) an angle-of-attack STC solve
+     (``rocket6dof_model(aoa_stc=True)``, K=14, 5 substeps, IPM cap 30, two
+     refinement steps, f64, at most 45 iterations, as
+     ``tests/test_stc.py``): it must converge with defect < 1e-3 and
+     violation < 1e-4, its worst angle of attack above alpha_max over the
+     nodes faster than the trigger speed below 1 degree, the fused route's
+     kernels launching as the IPM's structure says, and its fused_factor
+     calls one row larger (R) than the vacuum model's; (b) a drag solve
+     (cd_a 0.05, ``tests/test_scvx.py``'s settings, at most 40 iterations)
+     batched with the vacuum scenario, both under the same gates against
+     a propagate at four times the substeps, the drag lane's sigma more
+     than 1e-3 from the vacuum lane's; (c) and (d) the CLI
+     on the card in child processes, started beside phase 4's card runs:
+     ``cli solve --model rocket6dof_stc`` with (a)'s settings as dotted
+     overrides must give (a)'s sigma within 1e-6 relative, and ``cli sweep
+     --seeded --batch 8 --disc.K=14 --metrics --checkpoint`` must write a
+     manifest and one record with the JAX CLI's keys and a checkpoint that
+     restores bit for bit to the state of the same sweep run in this
+     process;
   3. each kernel against its plain PyTorch version on inputs captured from
      those runs (main path: its first call inside the first IPM iteration,
      and every call of the 10th lockstep SCvx iteration, every third of
@@ -55,7 +87,10 @@ from beside this file and never imports JAX or the JAX package). Phases:
      iteration, cho_solve_vec as well; penalized path: chol, cho_solve,
      tridiag_factor, tridiag_solve and cho_solve_vec, and point-mass path:
      the fused route's three kernels,
-     both as the main path's kernels; chol and cho_solve block by block;
+     both as the main path's kernels; the seeded path's nominal (B=1):
+     the fused route's three kernels at its first IPM iteration; the STC
+     solve's fused_factor (R one larger) at its first IPM iteration and
+     its 10th SCvx iteration; chol and cho_solve block by block;
      fused_chol_solve on synthetic SPD batches at the vehicle's shape and at
      the penalized path's stage-Hessian shape; and the generic-width
      instantiations, chol at GENERIC_CHOL and fused_chol_solve at
@@ -66,7 +101,8 @@ from beside this file and never imports JAX or the JAX package). Phases:
      against the float64 plain version within the forward error those
      bounds permit (``check_call``); the discretize kernel against its plain
      version on the main path's first and 10th lockstep calls, the last call
-     of each replan run, a synthetic call with drag and a NaN lane, and the
+     of each replan run, a synthetic call with drag and a NaN lane, the
+     drag solve's first call, and the
      point-mass path's first and 10th calls and a NaN lane, each gated per
      lane and output (``check_disc``), with the gap between the kernel's
      x_prop and the plain ``propagate``'s printed; chol, fused_chol_solve
@@ -79,12 +115,15 @@ from beside this file and never imports JAX or the JAX package). Phases:
      what the kernels do not take (cho_solve: any layout but the ones it
      reads in place);
   4. f64 on the card beside the same runs on the CPU with the plain
-     versions (child processes, Ruiz on every solve): B=4 of the main path
-     and of the penalized path at K=50, B=4 of the point-mass path at K=30,
+     versions (child processes, each of the card's too, Ruiz on every
+     solve): B=4 of the main path,
+     of the seeded path (its nominal too) and of the penalized path at K=50,
+     B=4 of the point-mass path at K=30,
      and the replan path at K=50 with the static KKT regularization at 1e-6
      (``REPLAN_CHECK_REG`` says why); sigma (X and U for the fixed-time
      point mass) within 1e-6 relative, identical iteration counts and
-     converged flags; and, as a reading, the penalized case again on the
+     converged flags; the seeded lanes' sigma within 5e-2 of the main
+     case's, on the card and on the CPU; and, as a reading, the penalized case again on the
      card with tridiag_factor's plain version (a child process beside the
      card runs), to show how far a change of summation order alone moves
      sigma;
@@ -95,7 +134,8 @@ from beside this file and never imports JAX or the JAX package). Phases:
      version's time and, where one exists, one PyTorch library call's time
      (chol and cho_solve also at a B=256 batch of blocks, for the record,
      and cho_solve on the penalized path's call as the IPM makes it;
-     fused_chol_solve at both of its phase-3 shapes; chol at its generic
+     fused_chol_solve at both of its phase-3 shapes; fused_factor at the
+     seeded nominal's B=1 and at the STC solve's R; chol at its generic
      width beside the first design's time there; tridiag_solve also on
      the penalized path, and it and fused_factor at the point mass's
      shapes; tridiag_factor also in float64; cho_solve_vec at every path's
@@ -153,7 +193,13 @@ REPLAN_CHECK_REG = 1e-6
 # throttle moves: the largest power of ten from 1.0 down at which the f64
 # nominal solve converges within the cap in both packages (PERF.md section 6)
 PENALTY_W = 0.1
+# the JAX CLI's sweep record (successiveconvexification_tpu/cli.py:195-202)
+CLI_SWEEP_KEYS = {"n_converged", "n_total", "mean_iterations", "mean_sigma",
+                  "max_nu_norm", "wall_s", "solves_per_s"}
 PM_K = 30                       # BASELINE config 1: point mass, K=30
+ATMO_K = 14                     # the atmospheric variants' horizon (tests)
+# torch threads of phase 4's CPU children (the machine has 8 cores)
+CPU_THREADS = {"main": 3, "penalized": 2, "pointmass": 1, "seeded": 1}
 VEHICLE = (300, 13, 2)          # tests/test_pallas_kkt.py:28, N, n, m
 # the generic-width instantiations of chol and fused_chol_solve (n not
 # compiled in), held in phase 3 at a ragged N (N, n) and (N, n, m), and
@@ -219,6 +265,9 @@ PENALIZED_PER_ITER = _counts(chol=1, cho_solve=2, tridiag_factor=1,
                              tridiag_solve=4, cho_solve_vec=6)
 PENALIZED_PER_COLD = _counts(chol=1, cho_solve=2, tridiag_factor=1,
                              tridiag_solve=3, cho_solve_vec=4)
+# the atmospheric variants' IPM runs two refinement steps: four KKT solves
+# an iteration
+PER_ITER_REFINE2 = _counts(fused_factor=1, tridiag_solve=5, cho_solve_vec=8)
 PER_SCVX = _counts(discretize_lanes=1)
 LATE_LOCKSTEP = 10
 
@@ -291,7 +340,8 @@ def penalized_model(P):
 
 def reference_case(P, case: str, device: str):
     """(model, params batch, cfg) of the f64 card-vs-CPU check ``case``:
-    B=4 of the main path, of the penalized path or of the point-mass path."""
+    B=4 of the main path (and of the seeded path, which sweeps the same
+    lanes), of the penalized path or of the point-mass path."""
     import torch
 
     if case == "pointmass":
@@ -306,6 +356,71 @@ def reference_case(P, case: str, device: str):
         return penalized_model(P), pb, cfg
     return P.rocket6dof_model(), pb, _configs(P, "float64", MAIN_K,
                                               MAIN_SUBSTEPS, bench=False)
+
+
+def reference_run(P, case: str, device: str) -> dict:
+    """The f64 card-vs-CPU check ``case`` on ``device``: its summary, and
+    for the seeded case the nominal's too (solved first, then the seeded
+    sweep of the main case's lanes from it)."""
+    import torch
+    from successiveconvexification_tpu_torch.models import rocket6dof as rk
+
+    model, pb, cfg = reference_case(P, case, device)
+    if case != "seeded":
+        return _reference_summary(P.solve_batch(model, pb, cfg, device=device))
+    nom = P.scvx_solve(model, rk.default_params(torch.float64, device), cfg,
+                       device=device)
+    st = P.solve_batch_seeded(model, pb, cfg, nominal_solution=(
+        nom.X[0], nom.U[0], nom.sigma[0]), device=device)
+    return {**_reference_summary(st), "nominal": _reference_summary(nom)}
+
+
+def atmo_cfg(P, scvx_cap: int):
+    """The atmospheric variants' settings (tests/test_stc.py:75-115,
+    tests/test_scvx.py:284-303): K=14, 5 substeps, IPM cap 30, two
+    refinement steps, f64; ``scvx_cap`` SCvx iterations at most."""
+    return P.SolverConfig(
+        dtype="float64", disc=P.DiscretizationConfig(K=ATMO_K, substeps=5),
+        ipm=P.IPMConfig(max_iters=30, refine_steps=2),
+        scvx=dataclasses.replace(P.ScvxConfig(), max_iters=scvx_cap))
+
+
+def aoa_excess(X, params) -> float:
+    """The worst angle of attack above alpha_max, in degrees, over the
+    nodes of one trajectory X (K, nx) faster than the trigger speed (+1e-3),
+    and 0 if none exceeds it (tests/test_stc.py:103-115)."""
+    import torch
+    from successiveconvexification_tpu_torch.utils.quaternion import quat_to_dcm
+
+    X = X.detach().double().cpu()
+    v = X[:, 4:7]
+    speed = torch.linalg.vector_norm(v, dim=-1)
+    v_b = (quat_to_dcm(X[:, 7:11]).transpose(-1, -2) @ v[..., None])[..., 0]
+    aoa = torch.rad2deg(torch.arccos(torch.clamp(-v_b[:, 0] / speed, -1, 1)))
+    excess = aoa - math.degrees(math.acos(float(params.cos_aoa_max)))
+    fast = speed > float(params.v_trigger) + 1e-3
+    return max(0.0, float(excess[fast].max())) if bool(fast.any()) else 0.0
+
+
+def quality(model, pb, cfg, st):
+    """Per lane (max |defect|, cone violation) of a batch of solutions, the
+    defect against the plain propagate at four times the substeps
+    (tests/test_scvx.py:39-44)."""
+    from successiveconvexification_tpu_torch.ops.discretize import propagate
+    from successiveconvexification_tpu_torch.ops.scvx import cone_violation
+
+    xp = propagate(model, pb, st.X, st.U, st.sigma,
+                   substeps=4 * cfg.disc.substeps, foh=cfg.disc.foh)
+    return ((xp - st.X[:, 1:]).abs().amax(dim=(1, 2)).tolist(),
+            cone_violation(model, pb, st.X, st.U).tolist())
+
+
+def _bits(t):
+    """A tensor's bits, so that equal NaNs compare equal."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
 
 
 def replan(P, model, cfg, device: str, cap: int, before=None, after=None,
@@ -449,17 +564,18 @@ def cpu_replan(path: str) -> None:
         json.dump(out, f)
 
 
-def cpu_reference(path: str, case: str) -> None:
+def reference_child(path: str, case: str, device: str) -> None:
     """Child mode: the f64 B=4 run of ``case`` on the CPU with the plain
-    versions."""
+    versions, or on the card with the kernels (built by the parent)."""
     import torch
 
-    torch.set_num_threads({"main": 3, "penalized": 2, "pointmass": 1}[case])
+    torch.set_num_threads(CPU_THREADS[case] if device == "cpu" else 1)
     P, *_ = _import_port()
-    model, pb, cfg = reference_case(P, case, "cpu")
     t0 = time.perf_counter()
-    st = P.solve_batch(model, pb, cfg, device="cpu")
-    out = {**_reference_summary(st), "seconds": time.perf_counter() - t0}
+    out = reference_run(P, case, device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
     with open(path, "w") as f:
         json.dump(out, f)
 
@@ -1480,17 +1596,13 @@ def device_kernels(fn) -> list[str]:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def run_sweep(P, batch_mod, label, model, cfg, pb, wrappers, caps, per_iter,
-              per_cold, card):
-    """Drive a sweep the way the main path runs (``solve_batch_compact_device``
-    with chunk 10 and min bucket 32) on the card, with every launch counter
-    set to 0 just before and read just after; print its line and launches,
-    and fail unless the trajectories are finite and well shaped, at least
-    half the lanes converge, the path's kernels launched, and every count
-    matches the IPM's structure (``per_iter``/``per_cold`` and one
-    discretize a lockstep SCvx iteration). ``caps`` keep each kernel's
-    chosen first call and every call of lockstep iteration LATE_LOCKSTEP
-    (or of the last one, if the sweep ends before it)."""
+def counted(batch_mod, wrappers, caps, fn):
+    """Run ``fn()`` on the card with every launch counter set to 0 just
+    before and read just after, counting the lockstep SCvx iterations and
+    those that paid a cold init. ``caps`` keep each kernel's chosen first
+    call and every call of lockstep iteration LATE_LOCKSTEP (or of the last
+    one, if the run ends before it). Returns (result, launches, counts with
+    the synchronized wall)."""
     import torch
 
     counts = {"lockstep": 0, "cold": 0}
@@ -1518,52 +1630,84 @@ def run_sweep(P, batch_mod, label, model, cfg, pb, wrappers, caps, per_iter,
                 w.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = P.solve_batch_compact_device(model, pb, cfg, chunk=10,
-                                               min_bucket=32, device="cuda")
+            out = fn()
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            counts["wall"] = time.perf_counter() - t0
             launches = {k: w.launches for k, w in wrappers.items()}
     finally:
         batch_mod.scvx_iteration = orig_iter
-
     for c in caps.values():
         c.late = list(c.recent) if c.late is None else c.late
-    B, K = pb.batch_shape[0], cfg.disc.K
-    finite = all(bool(torch.isfinite(t).all()) for t in (out.X, out.U, out.sigma))
-    shapes = (tuple(out.X.shape) == (B, K, model.nx)
-              and tuple(out.U.shape) == (B, K, model.nu))
-    n_conv = int(out.converged.sum())
-    its = sorted(out.iterations.tolist())
-    pct = lambda q: its[min(len(its) - 1, int(math.ceil(q * len(its))) - 1)]  # noqa: E731
-    feas = (out.defect_nl + out.viol_nl)[out.converged]
-    ms_iter = 1e3 * wall / max(counts["lockstep"], 1)
-    print(f"{label}: B={B} K={K} substeps={cfg.disc.substeps} {cfg.dtype}: "
-          f"{n_conv}/{B} converged, iterations p50 {pct(0.5)} p90 "
-          f"{pct(0.9)} max {its[-1]}, wall {wall:.3f} s, "
-          f"{counts['lockstep']} lockstep SCvx iterations "
-          f"({counts['cold']} with a cold init), {ms_iter:.2f} ms per "
-          f"SCvx iteration, sigma mean {float(out.sigma.mean()):.4f}, "
-          f"max converged defect+violation {float(feas.max()) if n_conv else float('nan'):.3e}")
-    print(f"{label} launches: {json.dumps(launches)}")
+    return out, launches, counts
+
+
+def check_launches(label, launches, counts, per_iter, per_cold,
+                   warm_starts: int = 0):
+    """Print a run's launches beside the IPM's structure (``per_iter`` and
+    ``per_cold`` a factorization, one discretize a lockstep SCvx iteration
+    and one a warm start) and fail unless the path's kernels launched and
+    every count matches."""
     # the kernel that launches once per factorization counts IPM iterations
     anchor = next(k for k in WRAPPED if per_iter[k] == 1 and per_cold[k] == 1)
     n_body = launches[anchor] - counts["cold"]
+    n_disc = counts["lockstep"] + warm_starts
     expect = {k: per_iter[k] * n_body + per_cold[k] * counts["cold"]
-              + PER_SCVX[k] * counts["lockstep"] for k in launches}
+              + PER_SCVX[k] * n_disc for k in launches}
+    print(f"{label} launches: {json.dumps(launches)}")
     print(f"  expected from {n_body} IPM iterations + {counts['cold']} cold "
-          f"inits + {counts['lockstep']} SCvx iterations: "
+          f"inits + {counts['lockstep']} SCvx iterations"
+          f"{f' + {warm_starts} warm start' if warm_starts else ''}: "
           f"{json.dumps(expect)}")
-    if not (finite and shapes):
-        raise PhaseError(f"{label}: non-finite or misshapen trajectories")
-    if n_conv < B // 2:
-        raise PhaseError(f"{label}: only {n_conv}/{B} lanes converged")
     path_kernels = [k for k in launches if per_iter[k] or PER_SCVX[k]]
     if any(launches[k] == 0 for k in path_kernels):
         raise PhaseError(f"{label}: a kernel never launched: {launches}")
     if launches != expect:
         raise PhaseError(f"{label}: launch counts do not match the IPM")
-    return out, launches, dict(counts, wall=wall, ms_iter=ms_iter,
-                               p50=pct(0.5), p90=pct(0.9), max=its[-1])
+
+
+def _pct(values, q):
+    v = sorted(values)
+    return v[min(len(v) - 1, int(math.ceil(q * len(v))) - 1)]
+
+
+def run_sweep(P, batch_mod, label, model, cfg, pb, wrappers, caps, per_iter,
+              per_cold, card, solve=None, warm_starts: int = 0):
+    """Drive a sweep the way the main path runs (``solve_batch_compact_device``
+    with chunk 10 and min bucket 32, or ``solve()``) on the card through
+    ``counted``; print its line and launches, and fail unless the
+    trajectories are finite and well shaped, at least half the lanes
+    converge, the path's kernels launched, and every count matches the
+    IPM's structure (``check_launches``)."""
+    import torch
+
+    if solve is None:
+        def solve():
+            return P.solve_batch_compact_device(model, pb, cfg, chunk=10,
+                                                min_bucket=32, device="cuda")
+    out, launches, counts = counted(batch_mod, wrappers, caps, solve)
+    wall = counts["wall"]
+    B, K = pb.batch_shape[0], cfg.disc.K
+    finite = all(bool(torch.isfinite(t).all()) for t in (out.X, out.U, out.sigma))
+    shapes = (tuple(out.X.shape) == (B, K, model.nx)
+              and tuple(out.U.shape) == (B, K, model.nu))
+    n_conv = int(out.converged.sum())
+    its = out.iterations.tolist()
+    feas = (out.defect_nl + out.viol_nl)[out.converged]
+    ms_iter = 1e3 * wall / max(counts["lockstep"], 1)
+    print(f"{label}: B={B} K={K} substeps={cfg.disc.substeps} {cfg.dtype}: "
+          f"{n_conv}/{B} converged, iterations p50 {_pct(its, 0.5)} p90 "
+          f"{_pct(its, 0.9)} max {max(its)}, wall {wall:.3f} s, "
+          f"{counts['lockstep']} lockstep SCvx iterations "
+          f"({counts['cold']} with a cold init), {ms_iter:.2f} ms per "
+          f"SCvx iteration, sigma mean {float(out.sigma.mean()):.4f}, "
+          f"max converged defect+violation {float(feas.max()) if n_conv else float('nan'):.3e}")
+    if not (finite and shapes):
+        raise PhaseError(f"{label}: non-finite or misshapen trajectories")
+    if n_conv < B // 2:
+        raise PhaseError(f"{label}: only {n_conv}/{B} lanes converged")
+    check_launches(label, launches, counts, per_iter, per_cold, warm_starts)
+    return out, launches, dict(counts, ms_iter=ms_iter, p50=_pct(its, 0.5),
+                               p90=_pct(its, 0.9), max=max(its))
 
 
 def _card_line() -> str:
@@ -1604,9 +1748,15 @@ def main(save_captures: str | None = None) -> int:
     children = []
     ref_paths = {case: os.path.join(ROOT, "build",
                                     f"chip_smoke_cpu_reference_{case}.json")
-                 for case in ("main", "penalized", "pointmass")}
+                 for case in ("main", "penalized", "pointmass", "seeded")}
+    card_paths = {case: q.replace("_cpu_", "_card_")
+                  for case, q in ref_paths.items()}
     replan_path = os.path.join(ROOT, "build", "chip_smoke_cpu_replan.json")
     plain_path = os.path.join(ROOT, "build", "chip_smoke_card_plain_factor.json")
+    # phase 2g's CLI children: the STC solve's trajectory, the seeded
+    # sweep's metrics and checkpoint
+    cli_out = {k: os.path.join(ROOT, "build", f"chip_smoke_cli_{k}")
+               for k in ("stc.npz", "sweep.jsonl", "ck")}
     try:
         # ---- 1. card and build ------------------------------------------------
         card = _card_line()
@@ -1647,8 +1797,9 @@ def main(save_captures: str | None = None) -> int:
             # the first lockstep iteration's call
             "discretize_lanes": Capture(cuda_disc, "discretize_lanes", 0),
         }
-        out, launches, _ = run_sweep(P, batch_mod, "main path", model, cfg, pb,
-                                     wrappers, caps, PER_ITER, PER_COLD, card)
+        out, launches, main_counts = run_sweep(
+            P, batch_mod, "main path", model, cfg, pb, wrappers, caps, PER_ITER,
+            PER_COLD, card)
 
         # ---- 2b. the replan path ---------------------------------------------
         rcaps = {name: Capture(cuda_kkt, name, REPLAN_PER_COLD[name])
@@ -1754,6 +1905,137 @@ def main(save_captures: str | None = None) -> int:
         if not ok6 or vlaunches != _counts(fused_chol_solve=1):
             raise PhaseError("fused_chol_solve vehicle: wrong result or launches")
 
+        # ---- 2f. the seeded path -------------------------------------------
+        # bench.py's BENCH_MODE=seeded: the nominal scenario solved once,
+        # cold, then every lane of the main path's dispersions warm-started
+        # from it (STM-corrected) and swept with the main path's compaction
+        from successiveconvexification_tpu_torch.models import rocket6dof as rk
+
+        ncaps = {name: Capture(cuda_fused if name == "fused_factor" else cuda_kkt,
+                               name, PER_COLD[name])
+                 for name in ("fused_factor", "tridiag_solve", "cho_solve_vec")}
+        nominal, nlaunches, ncounts = counted(
+            batch_mod, wrappers, ncaps, lambda: P.scvx_solve(
+                model, rk.default_params(torch.float32, "cuda"), cfg,
+                device="cuda"))
+        nominal_s = ncounts["wall"]
+        print(f"seeded path, nominal: converged {bool(nominal.converged[0])} in "
+              f"{int(nominal.iterations[0])} SCvx iterations, sigma "
+              f"{float(nominal.sigma[0]):.5f}, nominal_s {nominal_s:.3f}")
+        check_launches("seeded path, nominal", nlaunches, ncounts, PER_ITER,
+                       PER_COLD)
+        if not bool(nominal.converged[0]):
+            raise PhaseError("seeded path: the nominal did not converge")
+        nom_sol = (nominal.X[0], nominal.U[0], nominal.sigma[0])
+        outs, _, scounts = run_sweep(
+            P, batch_mod, "seeded path", model, cfg, pb, wrappers, {}, PER_ITER,
+            PER_COLD, card, warm_starts=1, solve=lambda: P.solve_batch_seeded(
+                model, pb, cfg, nominal_solution=nom_sol, chunk=10,
+                min_bucket=32, device="cuda"))
+        n_s, n_m = int(outs.converged.sum()), int(out.converged.sum())
+        tol_feas = max(cfg.scvx.conv_tol_feas, cfg.scvx.conv_feas_eps_mult
+                       * torch.finfo(torch.float32).eps * MAIN_K * model.nx)
+        feas_s = (outs.defect_nl + outs.viol_nl)[outs.converged]
+        mean_s = float(outs.iterations.double().mean())
+        mean_m = float(out.iterations.double().mean())
+        both = outs.converged & out.converged
+        dsig = (outs.sigma - out.sigma)[both].double()
+        its_s = outs.iterations.tolist()
+        print(f"seeded path: {n_s}/{MAIN_B} converged, iterations p50 "
+              f"{_pct(its_s, 0.5)} p90 {_pct(its_s, 0.9)} max {max(its_s)}, "
+              f"{scounts['lockstep']} lockstep SCvx iterations, wall "
+              f"{scounts['wall']:.3f} s, {n_s / scounts['wall']:.3f} converged "
+              f"solves per second, nominal_s {nominal_s:.3f} (main path: "
+              f"{n_m / main_counts['wall']:.3f} converged solves per second); "
+              f"mean iterations a lane {mean_s:.3f} against the cold main "
+              f"path's {mean_m:.3f}; converged defect+violation at most "
+              f"{float(feas_s.max()) if n_s else float('nan'):.3e} (floor "
+              f"{tol_feas:.3e}); {card}")
+        qs = [0.0, 0.01, 0.1, 0.5, 0.9, 0.99, 1.0]
+        qv = (torch.quantile(dsig, torch.tensor(qs, dtype=torch.float64,
+                                                device=dsig.device)).tolist()
+              if len(dsig) else [])
+        print(f"  sigma seeded - main path over {len(dsig)} lanes converged on "
+              f"both: quantiles {dict(zip(qs, [round(v, 6) for v in qv]))}; "
+              f"{int((dsig < -5e-2).sum())} lanes lower by more than 5e-2, "
+              f"{int((dsig > 5e-2).sum())} higher (gate: none higher); sigma "
+              f"mean seeded {float(outs.sigma.mean()):.5f}, main path "
+              f"{float(out.sigma.mean()):.5f}")
+        if not bool((feas_s < tol_feas).all()):
+            raise PhaseError("seeded path: a converged lane misses the "
+                             "feasibility floor")
+        if not mean_s < mean_m:
+            raise PhaseError("seeded path: no fewer iterations a lane than "
+                             "the cold main path")
+        # one-sided in f32: the cold main path stops at a higher sigma than
+        # the f64 optimum in many lanes, no seeded lane does (PERF.md,
+        # scripts/seeded_vs_cold.py); the two-sided 5e-2 gate of
+        # tests/test_seeded.py holds in f64, phase 4
+        if bool((dsig >= 5e-2).any()):
+            raise PhaseError("seeded path: a lane's sigma is worse than the "
+                             "cold main path's by 5e-2 or more")
+
+        # ---- 2g. the atmospheric variants ------------------------------------
+        # (a) the angle-of-attack STC: its third linear row makes the fused
+        # factor's R one larger; its first and a late fused_factor call join
+        # phase 3
+        stc_model = P.rocket6dof_model(aoa_stc=True)
+        p64 = rk.default_params(torch.float64, "cuda")
+        cfg_stc = atmo_cfg(P, 45)
+        stc_cap = Capture(cuda_fused, "fused_factor", PER_COLD["fused_factor"])
+        stc, alaunches, acounts = counted(
+            batch_mod, wrappers, {"fused_factor": stc_cap},
+            lambda: P.scvx_solve(stc_model, p64, cfg_stc, device="cuda"))
+        r_stc = stc_cap.first[0].shape[2]
+        worst = aoa_excess(stc.X[0], p64)
+        print(f"STC solve ({stc_model.name}, K={ATMO_K}, float64, at most 45 "
+              f"iterations): converged {bool(stc.converged[0])} in "
+              f"{int(stc.iterations[0])}, {acounts['wall']:.3f} s, sigma "
+              f"{float(stc.sigma[0]):.6f}, defect {float(stc.defect_nl[0]):.3e} "
+              f"(gate 1e-3), violation {float(stc.viol_nl[0]):.3e} (gate 1e-4), "
+              f"worst angle of attack above alpha_max {worst:.4f} deg above "
+              f"the trigger speed (gate 1); fused_factor R = {r_stc}")
+        check_launches("STC solve", alaunches, acounts, PER_ITER_REFINE2,
+                       PER_COLD)
+        r_vac = (P.rocket6dof_model().n_lin + 1 + sum(stc_model.soc_dims)
+                 + 1 + stc_model.nr + stc_model.nu)
+        if not (bool(stc.converged[0]) and float(stc.defect_nl[0]) < 1e-3
+                and float(stc.viol_nl[0]) < 1e-4 and worst < 1.0
+                and r_stc == r_vac + 1):
+            raise PhaseError("STC solve: not converged, outside a gate, or R "
+                             f"{r_stc} is not the vacuum model's {r_vac} + 1")
+        # (b) drag (cd_a 0.05) against the vacuum solve at the same settings:
+        # one batched solve, lane 0 in vacuum and lane 1 with drag
+        cfg_drag = atmo_cfg(P, 40)
+        p_atmo = p64.map(lambda v, tail: v.expand((2,) + v.shape).clone())
+        p_atmo = p_atmo.replace(cd_a=torch.tensor([0.0, 0.05],
+                                                  dtype=torch.float64,
+                                                  device="cuda"))
+        ddcap = Capture(cuda_disc, "discretize_lanes", 0)
+        atmo, dlaunches, dcounts = counted(
+            batch_mod, wrappers, {"discretize_lanes": ddcap},
+            lambda: P.solve_batch(model, p_atmo, cfg_drag, device="cuda"))
+        (dfc_vac, dfc_drag), (vio_vac, vio_drag) = quality(model, p_atmo,
+                                                           cfg_drag, atmo)
+        sig_vac, sig_drag = atmo.sigma.tolist()
+        conv_vac, conv_drag = atmo.converged.tolist()
+        its_vac, its_drag = atmo.iterations.tolist()
+        dsig_drag = abs(sig_drag - sig_vac)
+        print(f"drag solve (cd_a 0.05, K={ATMO_K}, float64, at most 40 "
+              f"iterations, batched with the vacuum scenario, "
+              f"{dcounts['wall']:.3f} s): converged {conv_drag} in {its_drag}, "
+              f"sigma {sig_drag:.6f}, max defect {dfc_drag:.3e} (gate 1e-3), "
+              f"violation {vio_drag:.3e} (gate 1e-4); vacuum: converged "
+              f"{conv_vac} in {its_vac}, sigma {sig_vac:.6f}, max defect "
+              f"{dfc_vac:.3e}, violation {vio_vac:.3e}, worst angle of attack "
+              f"above alpha_max {aoa_excess(atmo.X[0], p64):.4f} deg (a "
+              f"reading); |sigma drag - vacuum| {dsig_drag:.3e} (gate > 1e-3)")
+        check_launches("drag solve", dlaunches, dcounts, PER_ITER_REFINE2,
+                       PER_COLD)
+        if not (conv_drag and conv_vac and max(dfc_drag, dfc_vac) < 1e-3
+                and max(vio_drag, vio_vac) < 1e-4 and dsig_drag > 1e-3):
+            raise PhaseError("drag solve: not converged or outside a gate")
+
         # the CPU halves of phase 4 run beside phases 3 and 5 (not beside the
         # host-bound paths above, whose walls they would inflate)
         for path in list(ref_paths.values()) + [replan_path, plain_path]:
@@ -1802,6 +2084,12 @@ def main(save_captures: str | None = None) -> int:
         phases += [(name, cap, "first IPM iteration of the point-mass path",
                     f"point-mass path, SCvx iteration {LATE_LOCKSTEP}")
                    for name, cap in mcaps.items() if name != "discretize_lanes"]
+        # the seeded path's nominal (B=1) and the STC solve (R one larger)
+        phases += [(name, cap, "first IPM iteration of the seeded path's "
+                    "nominal, B=1", None) for name, cap in ncaps.items()]
+        phases.append(("fused_factor", stc_cap, "first IPM iteration of the "
+                       "STC solve", f"STC solve, SCvx iteration "
+                       f"{LATE_LOCKSTEP} (or its last)"))
         # fused_chol_solve is on no path: synthetic SPD batches, float64, at
         # the vehicle's shape and at the penalized path's stage Hessian's
         # (H and E' of every node of the B=256, K=50 sweep)
@@ -1898,6 +2186,8 @@ def main(save_captures: str | None = None) -> int:
                  f"{REPLAN_CHECK_REG:g}, last iteration",
                  rdcap6.late[0] if rdcap6.late else None),
                 ("discretize_lanes", "synthetic: drag, one NaN node", synth),
+                ("discretize_lanes", "drag solve (lanes with cd_a 0 and "
+                 "0.05), first SCvx iteration", ddcap.first),
                 (PD, "point-mass path, first SCvx iteration", mcap.first),
                 (PD, f"point-mass path, SCvx iteration {LATE_LOCKSTEP} (or "
                  "its last)", mcap.late[-1] if mcap.late else None),
@@ -2159,6 +2449,11 @@ def main(save_captures: str | None = None) -> int:
                       None, "penalized path's stage Hessian shape"))
         # chol's generic-width kernel (n = 20 not compiled in), f32
         timed.append(("chol", (Ag.float(),), None, "generic width"))
+        # fused_factor at the seeded nominal's B=1 and at the STC solve's R
+        timed.append(("fused_factor", ncaps["fused_factor"].first, None,
+                      "seeded path's nominal, B=1"))
+        timed.append(("fused_factor", stc_cap.first, None,
+                      f"STC solve, R = {r_stc}, float64"))
         for name, args, n_launch, where in timed:
             ms, plain_ms, lib_ms, rec = _time_kernel(
                 name, args, wrappers[name], plains[name], library.get(name))
@@ -2214,14 +2509,47 @@ def main(save_captures: str | None = None) -> int:
         children.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--card-plain-factor",
              plain_path], cwd=ROOT))
-        card64, card_s = {}, {}
-        for case in ref_paths:
-            m64, pb64, cfg64 = reference_case(P, case, "cuda")
-            t0 = time.perf_counter()
-            card64[case] = _reference_summary(
-                P.solve_batch(m64, pb64, cfg64, device="cuda"))
-            torch.cuda.synchronize()
-            card_s[case] = time.perf_counter() - t0
+        # phase 2g (c) and (d): the CLI on the card, in children beside the
+        # card runs below: the STC solve of (a) at its settings as dotted
+        # overrides, and a seeded sweep of 8 lanes at K=14 with metrics and
+        # a checkpoint
+        for q in (cli_out["stc.npz"], cli_out["sweep.jsonl"],
+                  cli_out["ck"] + ".npz"):
+            if os.path.exists(q):
+                os.remove(q)
+        cli = [sys.executable, "-m", "successiveconvexification_tpu_torch.cli"]
+        cli_args = {
+            "solve": ["solve", "--model", "rocket6dof_stc", "--dtype", "float64",
+                      f"--disc.K={ATMO_K}", "--disc.substeps=5",
+                      "--ipm.max_iters=30", "--ipm.refine_steps=2",
+                      "--scvx.max_iters=45", "--out", cli_out["stc.npz"]],
+            "sweep": ["sweep", "--seeded", "--batch", "8",
+                      f"--disc.K={ATMO_K}", "--metrics", cli_out["sweep.jsonl"],
+                      "--checkpoint", cli_out["ck"]]}
+        cli_logs = {k: os.path.join(ROOT, "build", f"chip_smoke_cli_{k}.log")
+                    for k in cli_args}
+        cli_children = {}
+        for k, a in cli_args.items():
+            with open(cli_logs[k], "w") as log:
+                cli_children[k] = subprocess.Popen(
+                    cli + a, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+            children.append(cli_children[k])
+        # the f64 card runs, each in a child of its own beside the others
+        # (host-bound: one after another they took 442 of 1,292 s on an
+        # H100 at 700 W)
+        for case, q in card_paths.items():
+            if os.path.exists(q):
+                os.remove(q)
+            children.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--card-reference",
+                 q, case], cwd=ROOT))
+        # (d)'s reference: the CLI's sweep, in this process
+        cfg_cli = P.SolverConfig(disc=P.DiscretizationConfig(K=ATMO_K))
+        p32 = rk.default_params(torch.float32, "cuda")
+        ref8 = P.solve_batch_seeded(
+            model, P.sample_dispersions(
+                p32, torch.Generator(device="cpu").manual_seed(0), 8),
+            cfg_cli, nominal_params=p32, device="cuda")
         cfg64r = _configs(P, "float64", MAIN_K, MAIN_SUBSTEPS, bench=False,
                           kkt="pcr", static_reg=REPLAN_CHECK_REG)
         t0 = time.perf_counter()
@@ -2230,10 +2558,42 @@ def main(save_captures: str | None = None) -> int:
         card_r_s = time.perf_counter() - t0
         rcs = [c.wait(timeout=900) for c in children]
         children = []
-        paths = list(ref_paths.values()) + [replan_path, plain_path]
+        for k, c in cli_children.items():
+            print(f"CLI {k} child (exit code {c.returncode}): "
+                  + " ".join(open(cli_logs[k]).read().split())[-600:])
+        paths = list(ref_paths.values()) + list(card_paths.values())
+        paths += [replan_path, plain_path, cli_out["stc.npz"],
+                  cli_out["sweep.jsonl"], cli_out["ck"] + ".npz"]
         if any(rcs) or not all(os.path.exists(q) for q in paths):
-            raise PhaseError(f"f64 reference runs failed (rc={rcs})")
+            raise PhaseError(f"f64 reference runs or CLI children failed "
+                             f"(rc={rcs})")
+        card64 = {case: json.load(open(q)) for case, q in card_paths.items()}
+        card_s = {case: r["seconds"] for case, r in card64.items()}
         cpu_r = json.load(open(replan_path))
+        import numpy as np
+        from successiveconvexification_tpu_torch.io import checkpoint
+        from successiveconvexification_tpu_torch.utils.tree import tree_leaves
+
+        sig_cli = float(np.load(cli_out["stc.npz"])["sigma"])
+        rel_cli = abs(sig_cli - float(stc.sigma[0])) / abs(float(stc.sigma[0]))
+        lines = [json.loads(x) for x in open(cli_out["sweep.jsonl"])]
+        keys_ok = (len(lines) == 2 and "_manifest" in lines[0]
+                   and set(lines[1]) == CLI_SWEEP_KEYS
+                   and lines[1]["n_total"] == 8
+                   and lines[0]["_manifest"]["devices"] == [kind])
+        back = checkpoint.restore(cli_out["ck"], ref8, cfg=cfg_cli)
+        n_same = sum(torch.equal(_bits(a), _bits(b)) for a, b in
+                     zip(tree_leaves(back), tree_leaves(ref8)))
+        n_leaves = len(tree_leaves(ref8))
+        print(f"CLI on the card: solve --model rocket6dof_stc sigma "
+              f"{sig_cli:.9f} against the STC solve's, relative diff "
+              f"{rel_cli:.3e} (tol 1e-6); sweep --seeded --batch 8: record "
+              f"{json.dumps(lines[-1])}, manifest and keys "
+              f"{'ok' if keys_ok else 'WRONG'}; checkpoint restored against "
+              f"an in-process run of the same lanes: {n_same}/{n_leaves} "
+              f"leaves equal bit for bit")
+        if not (rel_cli <= 1e-6 and keys_ok and n_same == n_leaves):
+            raise PhaseError("CLI children disagree with the in-process runs")
 
         def rel_diff(a, b):
             """max |a - b| over max |b| (normwise, arrays or lists)."""
@@ -2250,6 +2610,14 @@ def main(save_captures: str | None = None) -> int:
                 rel = max(abs(a - b) / abs(b) for a, b in zip(card_c["sigma"],
                                                              cpu["sigma"]))
             same = all(card_c[k] == cpu[k] for k in ("iterations", "converged"))
+            if case == "seeded":   # and its nominal
+                cn, pn = card_c["nominal"], cpu["nominal"]
+                rel = max(rel, abs(cn["sigma"][0] - pn["sigma"][0])
+                          / abs(pn["sigma"][0]))
+                same &= all(cn[k] == pn[k] for k in ("iterations", "converged"))
+                print(f"f64 seeded nominal: iterations card {cn['iterations']} "
+                      f"CPU {pn['iterations']}, sigma card {cn['sigma'][0]:.9f} "
+                      f"CPU {pn['sigma'][0]:.9f}")
             K64 = PM_K if case == "pointmass" else MAIN_K
             print(f"f64 {case} B={REF_B} K={K64}: card {card_s[case]:.1f} s, "
                   f"CPU {cpu['seconds']:.1f} s; iterations card "
@@ -2273,6 +2641,23 @@ def main(save_captures: str | None = None) -> int:
               f"{sig_gaps(card_pp, card64['penalized'])}, card with the kernel "
               f"to the CPU {sig_gaps(card64['penalized'], cpu_p)} (a reading: "
               "summation order alone)")
+        # the seeded path against the cold one on the same lanes, f64, on the
+        # card and on the CPU: tests/test_seeded.py's gate, sigma within 5e-2
+        # where both converged
+        for where, runs in (("card", card64), ("CPU", {
+                c: json.load(open(ref_paths[c])) for c in ("main", "seeded")})):
+            ds = [abs(a - b) for a, b, ca, cb in zip(
+                runs["seeded"]["sigma"], runs["main"]["sigma"],
+                runs["seeded"]["converged"], runs["main"]["converged"])
+                if ca and cb]
+            print(f"f64 seeded vs main path sigma on the {where}, lanes "
+                  f"converged on both ({len(ds)}/{REF_B}): abs diffs "
+                  f"{[f'{g:.3e}' for g in ds]} (gate 5e-2); mean iterations "
+                  f"seeded {sum(runs['seeded']['iterations']) / REF_B:.2f}, "
+                  f"main {sum(runs['main']['iterations']) / REF_B:.2f}")
+            if len(ds) < REF_B or max(ds) >= 5e-2:
+                raise PhaseError(f"f64 seeded path disagrees with the main "
+                                 f"path on the {where}")
         both = [a and b for a, b in zip(card64["main"]["converged"],
                                         card64["penalized"]["converged"])]
         gap = [abs(p_ - m_) / abs(m_) for p_, m_, ok in zip(
@@ -2313,8 +2698,10 @@ def main(save_captures: str | None = None) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--cpu-reference":
-        cpu_reference(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] in ("--cpu-reference",
+                                              "--card-reference"):
+        reference_child(sys.argv[2], sys.argv[3],
+                        "cpu" if sys.argv[1] == "--cpu-reference" else "cuda")
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--cpu-replan":
         cpu_replan(sys.argv[2])

@@ -37,6 +37,7 @@ from successiveconvexification_tpu_torch.parallel.batch import (
     sample_dispersions,
     solve_batch,
     solve_batch_compact_device,
+    solve_batch_seeded,
 )
 
 __all__ = [
@@ -55,6 +56,7 @@ __all__ = [
     "scvx_warm_start",
     "solve_batch",
     "solve_batch_compact_device",
+    "solve_batch_seeded",
     "batch_stats",
     "sample_dispersions",
 ]

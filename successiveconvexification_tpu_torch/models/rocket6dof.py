@@ -12,10 +12,9 @@ Control (nu=3): u = T_B, thrust vector in the body frame.
 Per-node cones (deltas about (xbar, ubar)): mass and linearized thrust lower
 bound (linear), glideslope SOC(3), tilt SOC(3), rate SOC(4), thrust upper
 bound SOC(4), gimbal SOC(4) — the same rows as the JAX package's model.
-
-Only the vacuum model is ported here; the angle-of-attack STC variant waits
-(ROADMAP Queue 1). ``cd_a`` is kept in the params so both packages read one
-parameter set.
+``rocket6dof_model(aoa_stc=True)`` adds a third linear row, the linearized
+angle-of-attack state-triggered constraint (``_aoa_stc_scalar``). Drag
+(``cd_a > 0``) is in the dynamics of both variants.
 
 Every function is batched over leading dimensions. Params fields have a batch
 shape ``P`` (``()`` unbatched, ``(B,)`` for a dispersion batch) that must
@@ -273,6 +272,60 @@ def stage_cones(params: Rocket6DoFParams, xk: torch.Tensor, uk: torch.Tensor):
                           (G_tub, h_tub), (G_gim, h_gim))
 
 
+# margin added to every linearized STC row's right-hand side: where the
+# trigger is off, h = -min(g, 0) c is identically 0 and the row would read
+# 0'd <= 0, which has no strict interior for the IPM; the nonlinear merit
+# reads the same rows, so both see the margin
+STC_EPS = 1e-6
+
+
+def _aoa_stc_scalar(params: Rocket6DoFParams, x: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+    """Continuous state-triggered angle-of-attack constraint h(x) <= 0:
+
+        trigger     g(x) = v_trigger - ||v||        (enforced where g < 0)
+        constraint  c(x) = cos(alpha_max) ||v|| + e1 . C_BI(q) v
+        STC         h(x) = -min(g(x), 0) c(x)
+
+    c <= 0 says the body +x axis is within alpha_max of the airflow (-v).
+    Batched over leading dimensions; ``u`` is not read.
+    """
+    del u
+    v = x[..., I_V]
+    speed = safe_norm(v)
+    g = params.v_trigger - speed
+    # e1 . C_BI v = (first column of C_IB) . v
+    v_b0 = torch.sum(quat_to_dcm(x[..., I_Q])[..., :, 0] * v, dim=-1)
+    c = params.cos_aoa_max * speed + v_b0
+    # torch.minimum, not clamp: at g = 0 its derivative is 0.5, as jax.grad
+    # of jnp.minimum gives (clamp's is 1)
+    return -torch.minimum(g, torch.zeros_like(g)) * c
+
+
+def _aoa_stc_row(params: Rocket6DoFParams, xk: torch.Tensor,
+                 uk: torch.Tensor):
+    """The STC scalar linearized about (xk, uk): G (..., 1, nx+nu) and
+    h (..., 1) with G @ (dx, du) <= h = -h(xbar) + STC_EPS. G is the
+    gradient by reverse mode, one pullback for every node at once (each
+    node's scalar depends on its own state only)."""
+    lead = torch.broadcast_shapes(xk.shape[:-1], uk.shape[:-1],
+                                  params.batch_shape)
+    xu = torch.cat([xk.expand(lead + (NX,)), uk.expand(lead + (NU,))], dim=-1)
+    h, pullback = torch.func.vjp(
+        lambda a: _aoa_stc_scalar(params, a[..., :NX], a[..., NX:]), xu)
+    (G,) = pullback(torch.ones_like(h))
+    return G[..., None, :], (STC_EPS - h)[..., None]
+
+
+def stage_cones_aoa_stc(params: Rocket6DoFParams, xk: torch.Tensor,
+                        uk: torch.Tensor):
+    """``stage_cones`` and the linearized STC row (three linear rows)."""
+    G_lin, h_lin, socs = stage_cones(params, xk, uk)
+    G_stc, h_stc = _aoa_stc_row(params, xk, uk)
+    return (torch.cat([G_lin, G_stc], dim=-2),
+            torch.cat([h_lin, h_stc], dim=-1), socs)
+
+
 def initial_guess(params: Rocket6DoFParams, K: int):
     """Straight-line interpolation of BCs + hover-ish thrust.
 
@@ -337,16 +390,18 @@ def state_basis(params: Rocket6DoFParams, xk: torch.Tensor) -> torch.Tensor:
     return B
 
 
-def rocket6dof_model() -> Model:
-    """The vacuum 6-DoF model (one cached instance)."""
-    if "m" not in _MODEL:
-        _MODEL["m"] = Model(
-            name="rocket6dof",
+def rocket6dof_model(aoa_stc: bool = False) -> Model:
+    """The 6-DoF model; ``aoa_stc=True`` adds the angle-of-attack
+    state-triggered constraint row. One cached instance per flag value."""
+    key = bool(aoa_stc)
+    if key not in _MODELS:
+        _MODELS[key] = Model(
+            name="rocket6dof_stc" if key else "rocket6dof",
             nx=NX,
             nu=NU,
             f=dynamics,
-            stage_cones=stage_cones,
-            n_lin=N_LIN,
+            stage_cones=stage_cones_aoa_stc if key else stage_cones,
+            n_lin=N_LIN + (1 if key else 0),
             soc_dims=SOC_DIMS,
             mass_index=I_M,
             init_pinned=tuple([True] * 7 + [False] * 4 + [True] * 3),
@@ -361,7 +416,7 @@ def rocket6dof_model() -> Model:
             term_pinned_r=tuple([False] + [True] * 12),
             cuda_dynamics=CudaDynamics("rocket6dof", kernel_params),
         )
-    return _MODEL["m"]
+    return _MODELS[key]
 
 
-_MODEL: dict = {}
+_MODELS: dict = {}

@@ -369,6 +369,25 @@ class IPMState(NamedTuple):
     dual_infeas: torch.Tensor  # (B,) bool
 
 
+# status codes: status() packs a state's terminal flags into one int32 code
+# a lane (the flags stay the source of truth)
+STATUS_RUNNING = 0      # budget exhausted without any terminal flag
+STATUS_OPTIMAL = 1
+STATUS_STALLED = 2
+STATUS_PRIM_INFEAS = 3
+STATUS_DUAL_INFEAS = 4
+
+
+def status(st: IPMState) -> torch.Tensor:
+    """(B,) int32 status code. Precedence: optimal > primal infeasible >
+    dual infeasible > stalled > running."""
+    code = torch.full(st.converged.shape, STATUS_RUNNING, dtype=torch.int32,
+                      device=st.converged.device)
+    code = torch.where(st.stalled, STATUS_STALLED, code)
+    code = torch.where(st.dual_infeas, STATUS_DUAL_INFEAS, code)
+    code = torch.where(st.prim_infeas, STATUS_PRIM_INFEAS, code)
+    return torch.where(st.converged, STATUS_OPTIMAL, code)
+
 def _shift_into_cone(spec, v: ConeVec, e: ConeVec) -> ConeVec:
     """v + (1 + alpha_violation) e, per lane, so the result is interior."""
     alphas = []
