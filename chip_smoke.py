@@ -78,6 +78,22 @@ from beside this file and never imports JAX or the JAX package). Phases:
      manifest and one record with the JAX CLI's keys and a checkpoint that
      restores bit for bit to the state of the same sweep run in this
      process;
+  2h. the sharded sweep on the card, in child processes started first
+     beside phase 4's card runs: (a) the main path's sweep (its
+     dispersions, width and settings, without compaction) by
+     ``solve_batch`` and by ``run_batch`` on an NCCL group of one rank
+     with a commit every 10 SCvx iterations, in one child: the final
+     states must be equal bit for bit, the launch counters (set to 0
+     around each run) must match the IPM's structure, and each run's wall
+     and the mean host time of a commit are printed; (b) the point-mass
+     path under ``run_batch`` with a commit every 5 iterations,
+     uninterrupted in one child and, beside it, in a child that hard-exits
+     right after its step-10 commit; a fresh child resumes the crashed
+     run's shard files, and its final state must be the uninterrupted
+     run's bit for bit; (c) ``cli sweep --distributed --num-processes 1
+     --ckpt-every 2 --batch 8 --disc.K=14`` twice: the second run resumes
+     the finished sweep and must print the same n_total and
+     mean_iterations;
   3. each kernel against its plain PyTorch version on inputs captured from
      those runs (main path: its first call inside the first IPM iteration,
      and every call of the 10th lockstep SCvx iteration, every third of
@@ -149,7 +165,9 @@ before them. Any failed phase exits
 non-zero without that line. ``--cpu-reference PATH CASE`` (CASE: main,
 penalized or pointmass) and ``--cpu-replan PATH`` (CPU only) and
 ``--card-plain-factor PATH`` are the child modes of phase 4,
-``--profile-cho-solve PATH`` that of phase 5.
+``--sharded-sweep PATH``, ``--sharded-resume PATH`` and ``--pm-run-batch
+CKPT MODE PATH`` those of phase 2h, ``--profile-cho-solve PATH`` that of
+phase 5.
 ``--save-captures PATH`` runs every phase and also saves the captured
 inputs of tridiag_factor, cho_solve_vec, chol and cho_solve (the replan
 and penalized paths' calls, cho_solve's as the IPM makes them) and
@@ -173,9 +191,18 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, no sparsity, 700 W)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+sys.path.insert(0, ROOT)
+# H100 SXM published peaks (NVIDIA data sheet; dense, no sparsity, 700 W),
+# from the port's table; without the port beside this file main() refuses
+# to run before any of them is read
+try:
+    from successiveconvexification_tpu_torch.utils.metrics import CHIP_PEAKS
+except ImportError:
+    CHIP_PEAKS = None
+_PEAKS = (CHIP_PEAKS or {}).get("NVIDIA H100 80GB HBM3, 700 W", {})
+PEAK_BYTES_PER_S = _PEAKS.get("hbm_bytes_per_s")
+PEAK_FLOPS = {"float32": _PEAKS.get("f32_flops"),
+              "float64": _PEAKS.get("f64_flops")}
 
 MAIN_B, MAIN_K, MAIN_SUBSTEPS = 256, 50, 8
 REF_B = 4
@@ -270,6 +297,13 @@ PENALIZED_PER_COLD = _counts(chol=1, cho_solve=2, tridiag_factor=1,
 PER_ITER_REFINE2 = _counts(fused_factor=1, tridiag_solve=5, cho_solve_vec=8)
 PER_SCVX = _counts(discretize_lanes=1)
 LATE_LOCKSTEP = 10
+# phase 2h: (a) run_batch's commit cadence at the main path's width, (b)
+# the point-mass crash and resume: a commit every 5 SCvx iterations and a
+# crash right after the step-10 commit, (c) the CLI's cadence
+SHARD_B = MAIN_B
+SHARD_CKPT_EVERY = 10
+PM_CKPT_EVERY, PM_CRASH_STEP = 5, 10
+CLI_CKPT_EVERY = 2
 
 
 class PhaseError(RuntimeError):
@@ -616,6 +650,239 @@ def card_plain_factor(path: str) -> None:
     st = P.solve_batch(model, pb, cfg, device="cuda")
     torch.cuda.synchronize()
     out = {**_reference_summary(st), "seconds": time.perf_counter() - t0}
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def _free_port() -> int:
+    """A port on localhost that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _wrappers(cuda_fused, cuda_kkt, cuda_disc) -> dict:
+    """Every kernel's wrapper, by the name of its launch counter."""
+    return {"fused_factor": cuda_fused.fused_factor,
+            "tridiag_solve": cuda_kkt.tridiag_solve,
+            "cho_solve_vec": cuda_kkt.cho_solve_vec,
+            "chol": cuda_kkt.chol, "cho_solve": cuda_kkt.cho_solve,
+            "tridiag_factor": cuda_kkt.tridiag_factor,
+            "fused_chol_solve": cuda_kkt.fused_chol_solve,
+            "discretize_lanes": cuda_disc.discretize_lanes}
+
+
+def _same_leaves(a, b) -> tuple:
+    """(leaves equal bit for bit, leaves) of two states of one tree."""
+    import torch
+    from successiveconvexification_tpu_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return sum(torch.equal(_bits(x), _bits(y)) for x, y in zip(la, lb)), len(lb)
+
+
+def _pm_case(P, device: str):
+    """(model, params batch, cfg) of the point-mass path (phase 2d)."""
+    import torch
+
+    cfg = _configs(P, "float32", PM_K, MAIN_SUBSTEPS, bench=True,
+                   free_final_time=False, w_sigma=0.0, w_mass=1.0)
+    return (P.pointmass3dof_model(),
+            _dispersed(P, MAIN_B, torch.float32, device, pointmass=True), cfg)
+
+
+def sharded_sweep_child(path: str) -> None:
+    """Child mode of phase 2h (a): the main path's sweep (the rocket, K=50,
+    f32, bench.py's settings, phase 2's 256 dispersions) by ``solve_batch``
+    and by ``run_batch`` on an NCCL group of one rank with a commit every
+    SHARD_CKPT_EVERY iterations, in this process; launch counters set to 0
+    around each run and matched to the IPM's structure, the two final
+    states compared leaf by leaf, and the host time of each commit."""
+    import torch
+
+    torch.set_num_threads(1)
+    P, _, cuda_fused, cuda_kkt, cuda_disc = _import_port()
+    from successiveconvexification_tpu_torch.io import checkpoint
+    from successiveconvexification_tpu_torch.parallel import batch as batch_mod
+    from successiveconvexification_tpu_torch.parallel import mesh as mesh_lib
+
+    wrappers = _wrappers(cuda_fused, cuda_kkt, cuda_disc)
+    model = P.rocket6dof_model()
+    cfg = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True)
+    pb = _dispersed(P, SHARD_B, torch.float32, "cuda")
+    ck = os.path.join(ROOT, "build", "chip_smoke_2h_a", "sweep")
+    checkpoint.remove_shards(ck, first=0)
+    out = {}
+    mesh = mesh_lib.init_distributed(f"localhost:{_free_port()}", 1, 0, "cuda")
+    try:
+        runs = {"solve_batch": lambda: P.solve_batch(model, pb, cfg,
+                                                     device="cuda"),
+                "run_batch": lambda: batch_mod.run_batch(
+                    model, pb, cfg, mesh=mesh, ckpt_path=ck,
+                    ckpt_every=SHARD_CKPT_EVERY)}
+        commit_s = []
+        orig_commit = batch_mod._Committer.__call__
+
+        def timed_commit(self, st, step):
+            t0 = time.perf_counter()
+            orig_commit(self, st, step)
+            commit_s.append(time.perf_counter() - t0)
+
+        batch_mod._Committer.__call__ = timed_commit
+        try:
+            states = {}
+            for name, fn in runs.items():
+                states[name], launches, counts = counted(batch_mod, wrappers,
+                                                         {}, fn)
+                try:
+                    check_launches(f"2h (a) {name}", launches, counts,
+                                   PER_ITER, PER_COLD)
+                    err = None
+                except PhaseError as e:
+                    err = str(e)
+                out[name] = {"wall": counts["wall"],
+                             "lockstep": counts["lockstep"],
+                             "cold": counts["cold"], "launches": launches,
+                             "launch_error": err}
+        finally:
+            batch_mod._Committer.__call__ = orig_commit
+        st = states["run_batch"]
+        same, n = _same_leaves(st, states["solve_batch"])
+        out.update(same=same, leaves=n, commits=len(commit_s),
+                   commit_ms=[1e3 * t for t in commit_s],
+                   step=checkpoint.sharded_step(ck, cfg),
+                   converged=int(st.converged.sum()), B=SHARD_B,
+                   max_iterations=int(st.iterations.max()),
+                   finite=all(bool(torch.isfinite(t).all())
+                              for t in (st.X, st.U, st.sigma)))
+    finally:
+        mesh_lib.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def pm_run_batch_child(ck: str, mode: str, path: str) -> None:
+    """Child mode of phase 2h (b): the point-mass path (phase 2d) under
+    ``run_batch`` on an NCCL group of one rank, a commit every
+    PM_CKPT_EVERY iterations to ``ck``. ``mode`` crash: the process
+    hard-exits right after the step-PM_CRASH_STEP commit lands; resume (or
+    full): it resumes from the shard files under ``ck``, if any, and saves
+    its final state to ``path`` with the step it started from."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    P, *_ = _import_port()
+    from successiveconvexification_tpu_torch.io import checkpoint
+    from successiveconvexification_tpu_torch.parallel import batch as batch_mod
+    from successiveconvexification_tpu_torch.parallel import mesh as mesh_lib
+    from successiveconvexification_tpu_torch.utils.tree import tree_leaves
+
+    if mode == "crash":
+        save = checkpoint.save_sharded
+
+        def save_then_exit(path_, state, mesh=None, cfg=None, step=0):
+            save(path_, state, mesh=mesh, cfg=cfg, step=step)
+            if step == PM_CRASH_STEP:
+                os._exit(9)      # an uncoordinated failure mid-sweep
+
+        checkpoint.save_sharded = save_then_exit
+    model, pb, cfg = _pm_case(P, "cuda")
+    start = (checkpoint.sharded_step(ck, cfg)
+             if glob.glob(f"{ck}.shard*.npz") else 0)
+    mesh = mesh_lib.init_distributed(f"localhost:{_free_port()}", 1, 0, "cuda")
+    try:
+        t0 = time.perf_counter()
+        st = batch_mod.run_batch(model, pb, cfg, mesh=mesh, ckpt_path=ck,
+                                 ckpt_every=PM_CKPT_EVERY)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        mesh_lib.destroy_process_group()
+    np.savez(path, start=start, wall=wall,
+             n_converged=int(st.converged.sum()),
+             **{str(i): t.cpu().numpy() for i, t in enumerate(tree_leaves(st))})
+
+
+def sharded_resume_child(path: str) -> None:
+    """Child mode of phase 2h (b) and (c). (b): the point-mass path under
+    ``run_batch`` uninterrupted, beside the same run in a child that
+    crashes right after its step-10 commit; then a fresh child resumes the
+    crashed run's shard files, and its final state is compared leaf by
+    leaf with the uninterrupted run's. (c): ``cli sweep --distributed`` on
+    one rank at the CLI child's size, then the same command again, which
+    resumes the finished sweep."""
+    import shutil
+
+    import numpy as np
+
+    from successiveconvexification_tpu_torch.io import checkpoint
+
+    work = os.path.join(ROOT, "build", "chip_smoke_2h_bc")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    me = [sys.executable, os.path.abspath(__file__), "--pm-run-batch"]
+    ck = {m: os.path.join(work, m, "sweep") for m in ("full", "crash")}
+    npz = {m: os.path.join(work, f"{m}.npz") for m in ("full", "resume")}
+    logs = {m: open(os.path.join(work, f"{m}.log"), "w")
+            for m in ("full", "crash", "resume")}
+    out = {}
+    try:
+        procs = {m: subprocess.Popen(me + [ck[m], m, npz.get(m, "-")],
+                                     cwd=ROOT, stdout=logs[m],
+                                     stderr=subprocess.STDOUT)
+                 for m in ("full", "crash")}
+        try:
+            rcs = {m: p.wait(timeout=600) for m, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out["rc"] = rcs
+        out["crash_step"] = checkpoint.sharded_step(ck["crash"])
+        rcs["resume"] = subprocess.run(
+            me + [ck["crash"], "resume", npz["resume"]], cwd=ROOT,
+            stdout=logs["resume"], stderr=subprocess.STDOUT,
+            timeout=600).returncode
+        if rcs["full"] == 0 and rcs["resume"] == 0:
+            with np.load(npz["full"]) as a, np.load(npz["resume"]) as b:
+                keys = [k for k in a.files if k.isdigit()]
+                out["same"] = sum(a[k].tobytes() == b[k].tobytes()
+                                  for k in keys)
+                out["leaves"] = len(keys)
+                out["resume_start"] = int(b["start"])
+                out["walls"] = {"full": float(a["wall"]),
+                                "resume": float(b["wall"])}
+                out["converged"] = int(a["n_converged"])
+        # (c) the CLI twice on one rank: the second run resumes the
+        # finished sweep
+        cli_ck = os.path.join(work, "cli", "sweep")
+        recs = []
+        for i in range(2):
+            cmd = [sys.executable, "-m",
+                   "successiveconvexification_tpu_torch.cli", "sweep",
+                   "--distributed", "--num-processes", "1", "--process-id",
+                   "0", "--coordinator", f"localhost:{_free_port()}",
+                   "--checkpoint", cli_ck, "--ckpt-every",
+                   str(CLI_CKPT_EVERY), "--batch", "8", f"--disc.K={ATMO_K}"]
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                               timeout=600)
+            with open(os.path.join(work, f"cli{i}.log"), "w") as f:
+                f.write(r.stdout + r.stderr)
+            out.setdefault("cli_rc", []).append(r.returncode)
+            if r.returncode == 0:
+                recs.append(json.loads(r.stdout[r.stdout.index("{"):
+                                                r.stdout.rindex("}") + 1]))
+        out["cli"] = recs
+        out["cli_step"] = checkpoint.sharded_step(cli_ck)
+    finally:
+        for f in logs.values():
+            f.close()
     with open(path, "w") as f:
         json.dump(out, f)
 
@@ -1710,6 +1977,61 @@ def run_sweep(P, batch_mod, label, model, cfg, pb, wrappers, caps, per_iter,
                                p90=_pct(its, 0.9), max=max(its))
 
 
+def check_sharded(a: dict, bc: dict, card: str) -> None:
+    """Print phase 2h's readings (its children's) and fail unless (a)
+    run_batch gave solve_batch's final state bit for bit with launches
+    that match the IPM's structure, (b) the crashed run's checkpoint held
+    the step of the crash and its resume gave the uninterrupted run's
+    final state bit for bit, and (c) the CLI's second run resumed the
+    finished sweep with the first run's record."""
+    ms = a["commit_ms"]
+    print(f"2h (a) sharded sweep: run_batch on an NCCL group of 1 rank, a "
+          f"commit every {SHARD_CKPT_EVERY}, against solve_batch: B={a['B']} "
+          f"K={MAIN_K} float32: {a['converged']}/{a['B']} converged, "
+          f"iterations max {a['max_iterations']}; wall solve_batch "
+          f"{a['solve_batch']['wall']:.3f} s, run_batch "
+          f"{a['run_batch']['wall']:.3f} s ({a['run_batch']['lockstep']} "
+          f"lockstep SCvx iterations, {a['run_batch']['cold']} with a cold "
+          f"init; solve_batch {a['solve_batch']['lockstep']}, "
+          f"{a['solve_batch']['cold']}); {a['commits']} commits, host time a "
+          f"commit mean {sum(ms) / max(len(ms), 1):.3f} ms (min "
+          f"{min(ms, default=float('nan')):.3f}, max "
+          f"{max(ms, default=float('nan')):.3f}); checkpoint step "
+          f"{a['step']}; {a['same']}/{a['leaves']} leaves equal bit for bit; "
+          f"run_batch launches {json.dumps(a['run_batch']['launches'])}; "
+          f"{card}")
+    errors = [a[k]["launch_error"] for k in ("solve_batch", "run_batch")
+              if a[k]["launch_error"]]
+    if errors or not (a["same"] == a["leaves"] and a["finite"]
+                      and a["converged"] >= a["B"] // 2 and a["commits"] >= 1
+                      and a["step"] == a["commits"] * SHARD_CKPT_EVERY):
+        raise PhaseError(f"2h (a): run_batch is not solve_batch bit for bit, "
+                         f"or its launches or commits are wrong {errors}")
+    print(f"2h (b) crash and resume, point-mass path B={MAIN_B} K={PM_K} "
+          f"float32 under run_batch, a commit every {PM_CKPT_EVERY}: exit "
+          f"codes {json.dumps(bc['rc'])} (crash 9 expected); the crashed "
+          f"run's checkpoint at step {bc['crash_step']}, resumed from step "
+          f"{bc.get('resume_start')}; walls {json.dumps(bc.get('walls'))} s; "
+          f"{bc.get('converged')}/{MAIN_B} converged; "
+          f"{bc.get('same')}/{bc.get('leaves')} leaves of the resumed run "
+          f"equal the uninterrupted run's bit for bit")
+    if not (bc["rc"] == {"full": 0, "crash": 9, "resume": 0}
+            and bc["crash_step"] == PM_CRASH_STEP
+            and bc.get("resume_start") == PM_CRASH_STEP
+            and bc.get("same") == bc.get("leaves") is not None):
+        raise PhaseError("2h (b): the crash and resume is not bit for bit")
+    recs = bc["cli"]
+    print(f"2h (c) cli sweep --distributed --num-processes 1 --ckpt-every "
+          f"{CLI_CKPT_EVERY} --batch 8 --disc.K={ATMO_K}, twice: exit codes "
+          f"{bc['cli_rc']}; records {json.dumps(recs)}; checkpoint step "
+          f"{bc['cli_step']}")
+    if not (bc["cli_rc"] == [0, 0] and len(recs) == 2
+            and recs[0]["n_total"] == recs[1]["n_total"] == 8
+            and recs[0]["mean_iterations"] == recs[1]["mean_iterations"]
+            and bc["cli_step"] >= CLI_CKPT_EVERY):
+        raise PhaseError("2h (c): the CLI's resume gave another record")
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     try:
@@ -1780,13 +2102,7 @@ def main(save_captures: str | None = None) -> int:
         model = P.rocket6dof_model()
         cfg = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True)
         pb = _dispersed(P, MAIN_B, torch.float32, "cuda")
-        wrappers = {"fused_factor": cuda_fused.fused_factor,
-                    "tridiag_solve": cuda_kkt.tridiag_solve,
-                    "cho_solve_vec": cuda_kkt.cho_solve_vec,
-                    "chol": cuda_kkt.chol, "cho_solve": cuda_kkt.cho_solve,
-                    "tridiag_factor": cuda_kkt.tridiag_factor,
-                    "fused_chol_solve": cuda_kkt.fused_chol_solve,
-                    "discretize_lanes": cuda_disc.discretize_lanes}
+        wrappers = _wrappers(cuda_fused, cuda_kkt, cuda_disc)
         caps = {
             "fused_factor": Capture(cuda_fused, "fused_factor",
                                     PER_COLD["fused_factor"]),
@@ -1864,10 +2180,7 @@ def main(save_captures: str | None = None) -> int:
 
         # ---- 2d. the point-mass path -----------------------------------------
         # BASELINE config 1: K=30, fixed final time, maximum final mass
-        pm_model = P.pointmass3dof_model()
-        cfg_pm = _configs(P, "float32", PM_K, MAIN_SUBSTEPS, bench=True,
-                          free_final_time=False, w_sigma=0.0, w_mass=1.0)
-        pb_pm = _dispersed(P, MAIN_B, torch.float32, "cuda", pointmass=True)
+        pm_model, pb_pm, cfg_pm = _pm_case(P, "cuda")
         # tridiag_solve: the first KKT solve, not the Sherman-Morrison solve
         # before it, whose right-hand side g_sig is 0 at a fixed final time
         mcaps = {
@@ -2503,6 +2816,22 @@ def main(save_captures: str | None = None) -> int:
               f"{[round(w, 1) for w in walls['plain']]}; {card}")
 
         # ---- 4. f64 on the card against the CPU -------------------------------
+        # phase 2h, the sharded sweep on the card, in children started first
+        # beside the card runs below: (a) run_batch against solve_batch at
+        # the main path's width, (b) the point-mass crash and resume and (c)
+        # the CLI's distributed sweep and its resume
+        h_paths = {k: os.path.join(ROOT, "build", f"chip_smoke_2h_{k}.json")
+                   for k in ("a", "bc")}
+        h_children = {}
+        for k, mode in (("a", "--sharded-sweep"), ("bc", "--sharded-resume")):
+            if os.path.exists(h_paths[k]):
+                os.remove(h_paths[k])
+            with open(h_paths[k].replace(".json", ".log"), "w") as log:
+                h_children[k] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), mode,
+                     h_paths[k]], cwd=ROOT, stdout=log,
+                    stderr=subprocess.STDOUT)
+            children.append(h_children[k])
         # the penalized case with the plain factor on the card, a reading, in
         # a child beside the card runs below (after phase 5: it would share
         # the card with the timed kernels)
@@ -2561,9 +2890,15 @@ def main(save_captures: str | None = None) -> int:
         for k, c in cli_children.items():
             print(f"CLI {k} child (exit code {c.returncode}): "
                   + " ".join(open(cli_logs[k]).read().split())[-600:])
+        for k, c in h_children.items():
+            if c.returncode:
+                print(f"2h {k} child (exit code {c.returncode}): " + " ".join(
+                    open(h_paths[k].replace(".json", ".log")).read().split()
+                )[-1500:])
         paths = list(ref_paths.values()) + list(card_paths.values())
         paths += [replan_path, plain_path, cli_out["stc.npz"],
                   cli_out["sweep.jsonl"], cli_out["ck"] + ".npz"]
+        paths += list(h_paths.values())
         if any(rcs) or not all(os.path.exists(q) for q in paths):
             raise PhaseError(f"f64 reference runs or CLI children failed "
                              f"(rc={rcs})")
@@ -2594,6 +2929,8 @@ def main(save_captures: str | None = None) -> int:
               f"leaves equal bit for bit")
         if not (rel_cli <= 1e-6 and keys_ok and n_same == n_leaves):
             raise PhaseError("CLI children disagree with the in-process runs")
+        check_sharded(json.load(open(h_paths["a"])),
+                      json.load(open(h_paths["bc"])), card)
 
         def rel_diff(a, b):
             """max |a - b| over max |b| (normwise, arrays or lists)."""
@@ -2711,6 +3048,15 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--profile-cho-solve":
         profile_cho_solve(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--sharded-sweep":
+        sharded_sweep_child(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--sharded-resume":
+        sharded_resume_child(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 5 and sys.argv[1] == "--pm-run-batch":
+        pm_run_batch_child(*sys.argv[2:])
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--save-captures":
         sys.exit(main(sys.argv[2]))

@@ -38,6 +38,7 @@ from successiveconvexification_tpu_torch.parallel.batch import (
     solve_batch,
     solve_batch_compact_device,
     solve_batch_seeded,
+    solve_batch_sharded,
 )
 
 __all__ = [
@@ -57,6 +58,7 @@ __all__ = [
     "solve_batch",
     "solve_batch_compact_device",
     "solve_batch_seeded",
+    "solve_batch_sharded",
     "batch_stats",
     "sample_dispersions",
 ]

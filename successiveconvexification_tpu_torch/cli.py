@@ -7,12 +7,24 @@ Usage:
     python -m successiveconvexification_tpu_torch.cli sweep --batch 256
         [--seed 0] [--seeded] [--compact off|device] [--checkpoint ckpt]
         [--metrics metrics.jsonl] [--profile DIR] [--device cuda]
+        [--distributed --coordinator HOST:PORT --num-processes N
+         --process-id I [--ckpt-every 10] [--no-resume]]
 
 Overrides use dotted flags: --ipm.max_iters=20 --scvx.w_nu=100 --disc.K=50.
 Models: rocket6dof, rocket6dof_stc (the angle-of-attack constraint) and
 pointmass3dof. ``--device`` defaults to the card; without one the CLI exits
 with an error unless it is given ``--device cpu``. Each command prints one
 JSON record, with the JAX package's CLI's keys.
+
+``sweep --distributed`` is the production multi-process sweep: start one
+process a rank with the same flags and its own ``--process-id``. Each joins
+the ``torch.distributed`` group at ``--coordinator`` before it touches a
+device (NCCL on the card ``cuda:{process_id % device_count}``, gloo with
+``--device cpu``), sweeps its tile of the lanes (``parallel/batch.py``
+``run_batch``), commits ``{checkpoint}.shard{rank}.npz`` every
+``--ckpt-every`` SCvx iterations, and on a restart resumes from the last
+commit unless ``--no-resume``. Rank 0 writes the manifest and prints the
+record, whose statistics are over the whole batch.
 """
 
 from __future__ import annotations
@@ -124,25 +136,57 @@ def cmd_solve(args, overrides, device):
 
 
 def cmd_sweep(args, overrides, device):
+    from successiveconvexification_tpu_torch.parallel import mesh as mesh_lib
+
+    if not args.distributed:
+        return _sweep(args, overrides, device, None)
+    # the process group comes before any use of the device
+    if device.type == "cuda":
+        device = torch.device("cuda",
+                              args.process_id % torch.cuda.device_count())
+    mesh = mesh_lib.init_distributed(args.coordinator, args.num_processes,
+                                     args.process_id, device)
+    try:
+        return _sweep(args, overrides, device, mesh)
+    finally:
+        mesh_lib.destroy_process_group()
+
+
+def _sweep(args, overrides, device, mesh):
+    import torch.distributed as dist
+
     from successiveconvexification_tpu_torch.io import checkpoint as ckpt
     from successiveconvexification_tpu_torch.parallel.batch import (
-        batch_stats, sample_dispersions, solve_batch,
+        batch_stats, run_batch, sample_dispersions, solve_batch,
         solve_batch_compact_device, solve_batch_seeded,
     )
     from successiveconvexification_tpu_torch.utils.metrics import JsonlLogger
 
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     cfg = _load_cfg(args, overrides)
     model, params = _get_model(args.model, getattr(torch, cfg.dtype), device)
+    # every rank draws the whole batch from the seed and keeps its lanes
     gen = torch.Generator(device="cpu").manual_seed(args.seed)
     pb = sample_dispersions(params, gen, args.batch)
-    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
+    names = [torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu"]
+    if mesh is not None:
+        names = names * world
+        dist.all_gather_object(names, names[0], group=mesh.group)
     logger = JsonlLogger(args.metrics, manifest={
         "cmd": "sweep", "batch": args.batch, "seed": args.seed,
-        "devices": [name], "process": [0, 1], "config": cfg.to_dict(),
-    }) if args.metrics else None
+        "devices": names, "process": [rank, world], "config": cfg.to_dict(),
+    }) if args.metrics and rank == 0 else None
 
-    if args.seeded:
+    if mesh is not None:
+        # the production path: the sharded sweep with periodic sharded
+        # commits and a resume on restart
+        def run():
+            return run_batch(model, pb, cfg, mesh=mesh,
+                             ckpt_path=args.checkpoint,
+                             ckpt_every=args.ckpt_every,
+                             resume=not args.no_resume, device=device)
+    elif args.seeded:
         # one cold nominal solve, every dispersed lane warm-started from it
         # (STM-corrected), then the compacting sweep
         def run():
@@ -156,7 +200,7 @@ def cmd_sweep(args, overrides, device):
             return solve_batch(model, pb, cfg, device=device)
 
     st, dt = _timed(run, device, args.profile)
-    stats = batch_stats(st)
+    stats = batch_stats(st, mesh)
     rec = {
         "n_converged": int(stats.n_converged), "n_total": int(stats.n_total),
         "mean_iterations": float(stats.mean_iterations),
@@ -165,11 +209,13 @@ def cmd_sweep(args, overrides, device):
         "wall_s": round(dt, 3),
         "solves_per_s": round(args.batch / dt, 2),
     }
-    print(json.dumps(rec, indent=2))
+    if rank == 0:
+        print(json.dumps(rec, indent=2))
     if logger:
         logger.log(rec)
         logger.close()
-    if args.checkpoint:
+    if args.checkpoint and mesh is None:
+        # a distributed run has committed its shard files in run_batch
         ckpt.save(args.checkpoint, st, cfg=cfg)
         print(f"sweep state checkpointed to {args.checkpoint}")
 
@@ -208,6 +254,20 @@ def main(argv=None):
     pw.add_argument("--metrics", default=None)
     pw.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one sweep to DIR")
+    pw.add_argument("--distributed", action="store_true",
+                    help="multi-process sweep: join the torch.distributed "
+                         "group, sweep this rank's lanes, commit sharded "
+                         "checkpoints and resume from them (needs "
+                         "--coordinator, --num-processes, --process-id)")
+    pw.add_argument("--coordinator", default="localhost:12345",
+                    metavar="HOST:PORT", help="where rank 0 listens")
+    pw.add_argument("--num-processes", type=int, default=1)
+    pw.add_argument("--process-id", type=int, default=0)
+    pw.add_argument("--ckpt-every", type=int, default=10,
+                    help="commit cadence in SCvx iterations (distributed, "
+                         "with --checkpoint)")
+    pw.add_argument("--no-resume", action="store_true",
+                    help="ignore an existing checkpoint instead of resuming")
     for q in (ps, pw):
         q.add_argument("--device", default="cuda",
                        help="torch device (default: the card; 'cpu' runs "

@@ -12,15 +12,29 @@ power-of-two buckets every ``chunk`` iterations with a stable argsort and a
 gather, so finished lanes stop costing compute. ``solve_batch_seeded`` is
 the production dispersion sweep: one cold nominal solve, every lane
 warm-started from it, then the compacting sweep.
+
+Over several processes (``parallel/mesh.py``) each rank sweeps its own
+tile of lanes. In the JAX package the sharded sweep is one program over
+global arrays, so its warm test and its alive test see the whole batch;
+here the drivers that take a ``mesh`` reduce both over every rank, one
+small ``all_reduce`` at each host read, so a rank's lanes follow the same
+branches as in the unsharded sweep and every rank runs the same number of
+iterations. ``run_batch`` is the production driver on top: the sharded
+sweep in chunks, each chunk committed as a sharded checkpoint
+(``io/checkpoint.py``), and a resume from the last commit on restart.
 """
 
 from __future__ import annotations
 
+import glob
+import threading
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from successiveconvexification_tpu_torch.config import SolverConfig
+from successiveconvexification_tpu_torch.io import checkpoint as ckpt_lib
 from successiveconvexification_tpu_torch.models.base import Model
 from successiveconvexification_tpu_torch.ops.scvx import (
     ScvxState,
@@ -30,6 +44,7 @@ from successiveconvexification_tpu_torch.ops.scvx import (
     scvx_warm_start,
     to_device,
 )
+from successiveconvexification_tpu_torch.parallel import mesh as mesh_lib
 from successiveconvexification_tpu_torch.utils.tree import tree_map
 
 
@@ -46,37 +61,55 @@ def _alive(st: ScvxState, max_iters: int) -> torch.Tensor:
     return (~st.converged) & (st.iterations < max_iters)
 
 
+def _any_alive(st: ScvxState, max_iters: int, mesh=None) -> bool:
+    """Whether any lane of the whole batch is alive: one host read, and with
+    a mesh one all-reduce of the alive count over every rank."""
+    if mesh is None:
+        return bool(_alive(st, max_iters).any())
+    n = _alive(st, max_iters).sum(dtype=torch.int32).reshape(1)
+    return int(mesh.all_reduce(n, dist.ReduceOp.SUM)) > 0
+
+
 def _batch_body(model: Model, params_batch, cfg: SolverConfig,
-                st: ScvxState) -> ScvxState:
+                st: ScvxState, mesh=None) -> ScvxState:
     """One lockstep batched SCvx iteration (shared by all batch drivers)."""
     if not cfg.ipm.warm_start:
         return scvx_iteration(model, params_batch, cfg, st)
     # one host read decides whether ANY lane needs the cold init this
-    # iteration; the all-warm case skips it (and Ruiz, when cold-only)
-    warm = bool(torch.isfinite(st.ipm_carry.gap).all())
-    return scvx_iteration(model, params_batch, cfg, st, assume_warm_valid=warm)
+    # iteration; the all-warm case skips it (and Ruiz, when cold-only).
+    # With a mesh the flag is the minimum over every rank's lanes, so a
+    # rank whose own lanes are all warm still takes the cold branch when
+    # another rank's are not, as the unsharded sweep does.
+    warm = torch.isfinite(st.ipm_carry.gap).all()
+    if mesh is not None:
+        warm = mesh.all_reduce(warm.to(torch.int32).reshape(1),
+                               dist.ReduceOp.MIN)
+    return scvx_iteration(model, params_batch, cfg, st,
+                          assume_warm_valid=bool(warm))
 
 
 def _solve_chunk(model: Model, params_batch, cfg: SolverConfig, chunk: int,
-                 st: ScvxState) -> ScvxState:
+                 st: ScvxState, mesh=None) -> ScvxState:
     """Up to ``chunk`` lockstep iterations, stopping early when all are done."""
     for _ in range(chunk):
-        if not bool(_alive(st, cfg.scvx.max_iters).any()):
+        if not _any_alive(st, cfg.scvx.max_iters, mesh):
             break
-        st = _batch_body(model, params_batch, cfg, st)
+        st = _batch_body(model, params_batch, cfg, st, mesh)
     return st
 
 
 def solve_batch(model: Model, params_batch, cfg: SolverConfig,
-                device=None) -> ScvxState:
+                device=None, mesh=None) -> ScvxState:
     """Solve a batch of scenarios (params leaves have a leading batch axis).
 
     ``device=None`` means the card; pass ``device="cpu"`` for the plain path.
+    With a ``mesh``, ``params_batch`` holds this rank's lanes, and the loop
+    runs while any lane of any rank is alive.
     """
     pb = to_device(params_batch, cfg, device)
     st = scvx_init(model, pb, cfg)
-    while bool(_alive(st, cfg.scvx.max_iters).any()):
-        st = _batch_body(model, pb, cfg, st)
+    while _any_alive(st, cfg.scvx.max_iters, mesh):
+        st = _batch_body(model, pb, cfg, st, mesh)
     return st
 
 
@@ -164,15 +197,141 @@ def solve_batch_seeded(model: Model, params_batch, cfg: SolverConfig,
                                       bucket_sizes=bucket_sizes,
                                       device=pb.device)
 
-def batch_stats(st: ScvxState) -> BatchStats:
-    conv = st.converged
+def _mesh_device(mesh, device):
+    """The device of a sharded run: ``device``, else the mesh's."""
+    return device if device is not None or mesh is None else mesh.device
+
+
+def solve_batch_sharded(model: Model, params_batch, cfg: SolverConfig,
+                        mesh=None, device=None) -> ScvxState:
+    """``solve_batch`` with the scenario axis split over the ranks of
+    ``mesh`` (default: this process alone). ``params_batch`` is the GLOBAL
+    batch, the same on every rank; the result is this rank's lanes
+    (``mesh_lib.gather_scenario_tree`` puts the batch back together)."""
+    if mesh is None:
+        mesh = mesh_lib.make_mesh(device)
+    pb = mesh_lib.shard_scenario_tree(params_batch, mesh)
+    return solve_batch(model, pb, cfg, device=_mesh_device(mesh, device),
+                       mesh=mesh)
+
+
+class _Committer:
+    """``run_batch``'s commits: each rank writes its lanes' shard file
+    (``checkpoint.save_sharded``), on a writer thread when ``async_ckpt``.
+
+    Torch tensors are mutable and may live on the card, so the host copies
+    are taken on the calling thread before the writer starts (``.to("cpu",
+    copy=True)`` waits for the stream), and the writer holds only them: it
+    cannot write a later state than the step it names. The previous writer
+    is joined before the next commit and at the end, and then every rank
+    meets at a barrier: no rank starts writing step s before every rank's
+    step before it is on disk, so the files on disk hold one step, or two
+    while a commit is being written. Past that barrier, rank 0 removes the
+    shard files of ranks this world does not have (a larger ensemble's,
+    resumed by a smaller one), whose older step would mix the checkpoint."""
+
+    def __init__(self, path: str, cfg: SolverConfig, mesh, async_ckpt: bool):
+        self.path, self.cfg, self.mesh = path, cfg, mesh
+        self.async_ckpt = async_ckpt
+        self.writer: Optional[threading.Thread] = None
+        self.error: Optional[Exception] = None
+        self.committed = False
+
+    def _write(self, host, step: int) -> None:
+        try:
+            ckpt_lib.save_sharded(self.path, host, mesh=self.mesh,
+                                  cfg=self.cfg, step=step)
+        except Exception as e:   # re-raised on the calling thread by join
+            self.error = e
+
+    def join(self) -> None:
+        if self.writer is not None:
+            self.writer.join()
+            self.writer = None
+        if self.error is not None:
+            raise RuntimeError("writing a sweep checkpoint failed") \
+                from self.error
+
+    def _settle(self) -> None:
+        """Join, meet every rank, and drop the files of absent ranks."""
+        self.join()
+        self.mesh.barrier()
+        if self.committed and self.mesh.rank == 0:
+            ckpt_lib.remove_shards(self.path, first=self.mesh.world)
+
+    def __call__(self, st: ScvxState, step: int) -> None:
+        self._settle()
+        host = tree_map(lambda t: t.detach().to("cpu", copy=True), st)
+        self.committed = True
+        if self.async_ckpt:
+            self.writer = threading.Thread(target=self._write,
+                                           args=(host, step))
+            self.writer.start()
+        else:
+            self._write(host, step)
+
+    def close(self) -> None:
+        """The last commit on disk on every rank."""
+        self._settle()
+
+
+def run_batch(model: Model, params_batch, cfg: SolverConfig, *,
+              mesh=None, ckpt_path: Optional[str] = None,
+              ckpt_every: int = 10, resume: bool = True,
+              async_ckpt: bool = True, device=None) -> ScvxState:
+    """Production sweep driver (the JAX package's ``run_batch``).
+
+    ``params_batch`` is the GLOBAL batch; the scenario axis is split over
+    the ranks of ``mesh`` (default: this process alone), and the result is
+    this rank's lanes. The sweep runs in chunks of ``ckpt_every`` lockstep
+    iterations while any lane of the whole batch is alive. After each
+    chunk, with ``ckpt_path``, every rank commits its lanes to
+    ``{ckpt_path}.shard{rank}.npz`` (``_Committer``). With ``resume`` and
+    shard files present, the sweep restores them
+    (``checkpoint.restore_sharded``, which refuses missing tiles, another
+    config and mixed steps) and goes on from their step.
+    """
+    if mesh is None:
+        mesh = mesh_lib.make_mesh(device)
+    pb = to_device(mesh_lib.shard_scenario_tree(params_batch, mesh), cfg,
+                   _mesh_device(mesh, device))
+    st = scvx_init(model, pb, cfg)
+
+    outer = 0
+    if ckpt_path and resume and glob.glob(f"{ckpt_path}.shard*.npz"):
+        st = ckpt_lib.restore_sharded(ckpt_path, st, mesh=mesh, cfg=cfg)
+        outer = ckpt_lib.sharded_step(ckpt_path)
+
+    commit = _Committer(ckpt_path, cfg, mesh, async_ckpt) if ckpt_path else None
+    try:
+        while _any_alive(st, cfg.scvx.max_iters, mesh):
+            st = _solve_chunk(model, pb, cfg, ckpt_every, st, mesh)
+            outer += ckpt_every
+            if commit is not None:
+                commit(st, outer)
+        if commit is not None:
+            commit.close()
+    finally:
+        if commit is not None:
+            commit.join()     # on an error: no barrier a lost peer would hold
+    return st
+
+
+def batch_stats(st: ScvxState, mesh=None) -> BatchStats:
+    """The sweep's statistics. With a ``mesh``, over the whole batch: the
+    per-lane vectors are gathered in lane order and reduced as one batch, so
+    the record is the unsharded sweep's."""
+    lanes = (st.converged, st.iterations, st.sigma, st.nu_norm)
+    if mesh is not None:
+        lanes = mesh_lib.gather_scenario_tree(lanes, mesh)
+    conv, iterations, sigma, nu_norm = lanes
     return BatchStats(
         n_converged=conv.to(torch.int32).sum(),
         n_total=torch.tensor(conv.shape[0], dtype=torch.int32),
-        mean_iterations=st.iterations.to(torch.float32).mean(),
-        max_iterations=st.iterations.max(),
-        mean_sigma=st.sigma.mean(),
-        max_nu_norm=st.nu_norm.max(),
+        mean_iterations=iterations.to(torch.float32).mean(),
+        max_iterations=iterations.max(),
+        mean_sigma=sigma.mean(),
+        max_nu_norm=nu_norm.max(),
     )
 
 

@@ -10,7 +10,11 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+        # leaves in sorted key order, as JAX flattens a dict (the order of
+        # tree_leaves and of checkpoint files); the result keeps tree's order
+        out = {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+               for k in sorted(tree)}
+        return {k: out[k] for k in tree}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
     if isinstance(tree, (tuple, list)):

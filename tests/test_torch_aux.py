@@ -2,7 +2,8 @@
 
 ``io/checkpoint.py`` writes the JAX package's ``.npz`` (the leaves in the
 order ``utils/tree.py`` flattens them, ``_meta`` with the step and the
-config's hash) and refuses another config or other shapes;
+config's hash), reads the file the JAX package's ``save`` writes, and
+refuses another config or other shapes;
 ``utils/metrics.py`` counts flops and bytes as XLA's ``cost_analysis``
 does on a matrix product; ``cli.py`` runs in child processes with
 ``--device cpu`` and imports no JAX. f64 point mass at K=10, B=4 for the
@@ -15,6 +16,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +32,8 @@ from successiveconvexification_tpu_torch.models import pointmass3dof as tpm
 from successiveconvexification_tpu_torch.models import rocket6dof as trk
 from successiveconvexification_tpu_torch.utils import metrics
 from successiveconvexification_tpu_torch.utils.tree import tree_leaves, tree_map
+
+from torch_helpers import assert_same_by_name, random_like
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = torch.float64
@@ -137,6 +141,28 @@ def test_deterministic_resume_equals_uninterrupted(tmp_path, sweep):
         st_b = T.scvx_iteration(model, pb, cfg, st_b)
     assert torch.equal(st_a.X, st_b.X) and torch.equal(st_a.sigma, st_b.sigma)
     assert torch.equal(st_a.iterations, st_b.iterations)
+
+
+def test_checkpoint_restores_a_file_jax_wrote(tmp_path, monkeypatch, sweep):
+    """The JAX package's ``save`` (its ``.npz``, written when Orbax is
+    missing) restores into the port's state with every leaf bit for bit,
+    matched by field name: the leaf orders of the two packages agree."""
+    from successiveconvexification_tpu.ops.scvx import scvx_init as jinit
+    from successiveconvexification_tpu.models import pointmass3dof as jpm
+
+    _, pb, cfg, st = sweep
+    cfg_j = J.SolverConfig.from_dict(_small_cfg_dict())
+    pj = jpm.PointMass3DoFParams(**{
+        k: jnp.asarray(v.numpy()) for k, v in pb.fields().items()})
+    shapes = jax.eval_shape(jax.vmap(
+        lambda p: jinit(J.pointmass3dof_model(), p, cfg_j)), pj)
+    sj = random_like(shapes, np.random.default_rng(11))
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    path = str(tmp_path / "jax_ck")
+    jckpt.save(path, sj, cfg=cfg_j, step=5)
+    assert os.path.exists(path + ".npz")
+    back = ckpt.restore(path, tree_map(torch.zeros_like, st), cfg=cfg)
+    assert_same_by_name(back, sj)
 
 
 def test_jsonl_logger_writes_jax_lines(tmp_path):
