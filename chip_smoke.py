@@ -94,6 +94,27 @@ from beside this file and never imports JAX or the JAX package). Phases:
      --ckpt-every 2 --batch 8 --disc.K=14`` twice: the second run resumes
      the finished sweep and must print the same n_total and
      mean_iterations;
+  2i. the ksharded KKT backend on an NCCL group of one rank, in a child
+     process started beside phase 4's card runs: (a) the JAX package's
+     reference subproblem (``tests/test_parallel.py:147``: the rocket at
+     K=50, 3 substeps, f64, IPM cap 45, one refinement step, the first
+     subproblem from ``scvx_init``) solved on the card with ksharded and
+     with scan, w within atol 1e-6 and sig within 1e-8 (that test's gate),
+     and with ksharded on the CPU (plain versions) within the same gate of
+     the card's and with as many IPM iterations; (b) ``scvx_solve`` of the
+     nominal rocket with ksharded at the main path's settings, which must
+     converge with a sigma within 1e-2 of phase 4's f64 nominal on the
+     card (the JAX package's f32-against-f64 gate at K=50) and no more
+     than 1e-3 relative above the lower of phase 2b's cold PCR solve and
+     phase 2f's cold nominal (one-sided: in f32 those cold solves stop
+     above the optimum on the card), its iterations and wall printed
+     beside both; (c) launch
+     counters set to 0 around (b), matched to the IPM's structure for the
+     route (``KSHARDED_PER_ITER``, ``KSHARDED_PER_COLD``; the fused factor
+     must not launch); (d) tridiag_factor and tridiag_solve against their
+     plain versions (``check_call``'s gates) on (b)'s calls: the interior
+     chain (48 blocks), the reduced system at N = 1 and the matrix
+     right-hand side's columns folded into lanes;
   3. each kernel against its plain PyTorch version on inputs captured from
      those runs (main path: its first call inside the first IPM iteration,
      and every call of the 10th lockstep SCvx iteration, every third of
@@ -166,8 +187,8 @@ non-zero without that line. ``--cpu-reference PATH CASE`` (CASE: main,
 penalized or pointmass) and ``--cpu-replan PATH`` (CPU only) and
 ``--card-plain-factor PATH`` are the child modes of phase 4,
 ``--sharded-sweep PATH``, ``--sharded-resume PATH`` and ``--pm-run-batch
-CKPT MODE PATH`` those of phase 2h, ``--profile-cho-solve PATH`` that of
-phase 5.
+CKPT MODE PATH`` those of phase 2h, ``--ksharded PATH`` that of phase 2i,
+``--profile-cho-solve PATH`` that of phase 5.
 ``--save-captures PATH`` runs every phase and also saves the captured
 inputs of tridiag_factor, cho_solve_vec, chol and cho_solve (the replan
 and penalized paths' calls, cho_solve's as the IPM makes them) and
@@ -292,6 +313,17 @@ PENALIZED_PER_ITER = _counts(chol=1, cho_solve=2, tridiag_factor=1,
                              tridiag_solve=4, cho_solve_vec=6)
 PENALIZED_PER_COLD = _counts(chol=1, cho_solve=2, tridiag_factor=1,
                              tridiag_solve=3, cho_solve_vec=4)
+# the ksharded backend (phase 2i) takes the unfused route: chol and two
+# cho_solve, then ksharded_factor, which factors the interior chain
+# (tridiag_factor) and forms Ya and Zb (a tridiag_solve on the folded
+# columns each); every ksharded_solve (the Sherman-Morrison vector and each
+# KKT solve) solves the interior (tridiag_solve) and factors and solves the
+# reduced separator system (tridiag_factor, tridiag_solve), one block at
+# one rank
+KSHARDED_PER_ITER = _counts(chol=1, cho_solve=2, tridiag_factor=1 + 4,
+                            tridiag_solve=2 + 2 * 4, cho_solve_vec=6)
+KSHARDED_PER_COLD = _counts(chol=1, cho_solve=2, tridiag_factor=1 + 3,
+                            tridiag_solve=2 + 2 * 3, cho_solve_vec=4)
 # the atmospheric variants' IPM runs two refinement steps: four KKT solves
 # an iteration
 PER_ITER_REFINE2 = _counts(fused_factor=1, tridiag_solve=5, cho_solve_vec=8)
@@ -887,6 +919,120 @@ def sharded_resume_child(path: str) -> None:
         json.dump(out, f)
 
 
+def _ksharded_subproblem(P, device: str):
+    """(StageSOCP, cfg) of the JAX package's ksharded reference test
+    (tests/test_parallel.py:147-189): the rocket at K=50, 3 substeps, f64,
+    IPM cap 45 with one refinement step, the first subproblem from
+    ``scvx_init``; on ``device``."""
+    import torch
+    from successiveconvexification_tpu_torch.models import rocket6dof as rk
+    from successiveconvexification_tpu_torch.ops import discretize, socp
+
+    cfg = P.SolverConfig(dtype="float64",
+                         disc=P.DiscretizationConfig(K=MAIN_K, substeps=3),
+                         ipm=P.IPMConfig(max_iters=45, refine_steps=1))
+    model = P.rocket6dof_model()
+    p = rk.default_params(torch.float64, device).map(lambda v, tail: v[None])
+    st = P.scvx_init(model, p, cfg)
+    d = socp.assemble(model, cfg.scvx, p, discretize.discretize(
+        model, p, st.X, st.U, st.sigma, cfg.disc.substeps), st.X, st.U,
+        st.sigma, st.tr_radius, True, st.penalty_scale)
+    return d, cfg
+
+
+def ksharded_child(path: str) -> None:
+    """Child mode of phase 2i, the ksharded KKT backend on an NCCL group of
+    one rank: (a) the JAX reference test's subproblem solved on the card
+    with ksharded and with scan, and with ksharded on the CPU (a mesh of
+    the CPU, the plain versions); (b) ``scvx_solve`` of the nominal rocket
+    with ksharded at the main path's settings, launch counters set to 0
+    around it (c); (d) tridiag_factor and tridiag_solve held to their plain
+    versions (``check_call``) on (b)'s calls: the first of its first IPM
+    iteration and every third of SCvx iteration LATE_LOCKSTEP (the
+    interior chain, the folded columns, the reduced system at N = 1)."""
+    import torch
+
+    torch.set_num_threads(1)
+    P, _, cuda_fused, cuda_kkt, cuda_disc = _import_port()
+    from successiveconvexification_tpu_torch.models import rocket6dof as rk
+    from successiveconvexification_tpu_torch.ops import ipm
+    from successiveconvexification_tpu_torch.parallel import batch as batch_mod
+    from successiveconvexification_tpu_torch.parallel import kkt_sharded as ks
+    from successiveconvexification_tpu_torch.parallel import mesh as mesh_lib
+
+    wrappers = _wrappers(cuda_fused, cuda_kkt, cuda_disc)
+    out = {}
+    mesh = mesh_lib.init_distributed(f"localhost:{_free_port()}", 1, 0, "cuda")
+    try:
+        # (a)
+        sols = {}
+        for where, kkt in (("card", "ksharded"), ("card", "scan"),
+                           ("cpu", "ksharded")):
+            d, cfg = _ksharded_subproblem(P, "cuda" if where == "card"
+                                          else "cpu")
+            ks.set_kkt_mesh(mesh if where == "card"
+                            else mesh_lib.make_mesh("cpu"))
+            t0 = time.perf_counter()
+            sol = ipm.ipm_solve(d, dataclasses.replace(cfg.ipm,
+                                                       kkt_solver=kkt))
+            if where == "card":
+                torch.cuda.synchronize()
+            sols[where, kkt] = sol
+            out[f"a_{where}_{kkt}"] = {
+                "converged": bool(sol.converged[0]),
+                "iters": int(sol.iters[0]), "sig": float(sol.x.sig[0]),
+                "seconds": time.perf_counter() - t0}
+        ks.set_kkt_mesh(mesh)
+        ref = sols["card", "ksharded"]
+        for where, kkt in (("card", "scan"), ("cpu", "ksharded")):
+            o = sols[where, kkt]
+            out[f"a_{where}_{kkt}"].update(
+                w_diff=float((ref.x.w.cpu() - o.x.w.cpu()).abs().max()),
+                sig_diff=abs(float(ref.x.sig[0]) - float(o.x.sig[0])))
+        # (b) and (c)
+        model = P.rocket6dof_model()
+        cfg = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True,
+                       kkt="ksharded")
+        caps = {name: Capture(cuda_kkt, name, KSHARDED_PER_COLD[name])
+                for name in ("tridiag_factor", "tridiag_solve")}
+        st, launches, counts = counted(
+            batch_mod, wrappers, caps, lambda: P.scvx_solve(
+                model, rk.default_params(torch.float32, "cuda"), cfg,
+                device="cuda"))
+        try:
+            check_launches("2i (b) ksharded scvx_solve", launches, counts,
+                           KSHARDED_PER_ITER, KSHARDED_PER_COLD)
+            err = None
+        except PhaseError as e:
+            err = str(e)
+        out["b"] = {"converged": bool(st.converged[0]),
+                    "iterations": int(st.iterations[0]),
+                    "sigma": float(st.sigma[0]), "wall": counts["wall"],
+                    "lockstep": counts["lockstep"], "cold": counts["cold"],
+                    "launches": launches, "launch_error": err,
+                    "finite": all(bool(torch.isfinite(t).all())
+                                  for t in (st.X, st.U, st.sigma))}
+        # (d); a matrix right-hand side's nrx columns are folded into lanes
+        out["nrx"] = caps["tridiag_factor"].first[0].shape[-1]
+        plains = {"tridiag_factor": cuda_kkt.tridiag_factor_plain,
+                  "tridiag_solve": cuda_kkt.tridiag_solve_plain}
+        checks = []
+        for name, cap in caps.items():
+            calls = [("first IPM iteration", cap.first)]
+            calls += [(f"SCvx iteration {LATE_LOCKSTEP}, call {i}", a)
+                      for i, a in enumerate(cap.late) if i % 3 == 0]
+            for when, a in calls:
+                res = check_call(name, a, wrappers[name], plains[name])
+                checks.append({"name": name, "when": when,
+                               "shapes": [list(t.shape) for t in a], **res})
+        out["d"] = checks
+    finally:
+        ks.set_kkt_mesh(None)
+        mesh_lib.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
 def _reference_summary(st) -> dict:
     return {"sigma": st.sigma.tolist(), "iterations": st.iterations.tolist(),
             "converged": st.converged.tolist(), "X": st.X.tolist(),
@@ -1048,8 +1194,9 @@ def _blocks(X, N, n):
 
     d = torch.stack([X[:, k * n:(k + 1) * n, k * n:(k + 1) * n]
                      for k in range(N)], 1)
-    low = torch.stack([X[:, (k + 1) * n:(k + 2) * n, k * n:(k + 1) * n]
-                       for k in range(N - 1)], 1)
+    low = (torch.stack([X[:, (k + 1) * n:(k + 2) * n, k * n:(k + 1) * n]
+                        for k in range(N - 1)], 1) if N > 1
+           else X.new_zeros((X.shape[0], 0, n, n)))
     return d, low
 
 
@@ -2032,6 +2179,91 @@ def check_sharded(a: dict, bc: dict, card: str) -> None:
         raise PhaseError("2h (c): the CLI's resume gave another record")
 
 
+def check_ksharded(k: dict, r: dict, nom: dict, nom64: float,
+                   card: str) -> None:
+    """Print phase 2i's readings (its child's) and fail unless (a) the
+    reference subproblem converged on the card with ksharded and with scan,
+    w within atol 1e-6 and sig within 1e-8 of each other (the JAX test's
+    gate), and the CPU's ksharded solve within the same gate of the card's
+    with as many IPM iterations; (b) the ksharded scvx_solve converged
+    with a sigma within 1e-2 of the f64 nominal's on the card (``nom64``,
+    phase 4; the JAX package's f32-against-f64 gate at this horizon,
+    ``tests/test_scvx.py::test_f32_matches_f64_at_flagship_horizon``) and
+    no more than 1e-3 relative above the lower of the f32 cold solves of
+    the same nominal on the other routes: phase 2b's (PCR, ``r``) and phase
+    2f's (fused scan, ``nom``). One-sided, because in float32 those cold
+    solves stop above the optimum on the H100 (by 1.9e-2 and 7.5e-3
+    relative; ROADMAP Queue 3), so a two-sided 1e-3 gate against either
+    holds the route to where the other stopped, not to the optimum;
+    (c) its launches matched the IPM's structure; (d) every check of
+    tridiag_factor and tridiag_solve passed, the interior chain, the folded
+    columns and the reduced system (N = 1) among them."""
+    a = {key[2:]: v for key, v in k.items() if key.startswith("a_")}
+    print("2i (a) ksharded on an NCCL group of 1 rank, the JAX test's "
+          f"subproblem (K={MAIN_K}, 3 substeps, float64, IPM cap 45): "
+          + "; ".join(f"{key}: converged {v['converged']} in {v['iters']} "
+                      f"IPM iterations, sig {v['sig']:.12f}, "
+                      f"{v['seconds']:.2f} s"
+                      + (f", |w - card ksharded| {v['w_diff']:.3e} (gate "
+                         f"1e-6), |sig - card ksharded| {v['sig_diff']:.3e} "
+                         "(gate 1e-8)" if "w_diff" in v else "")
+                      for key, v in a.items()))
+    ks_card, scan, cpu = a["card_ksharded"], a["card_scan"], a["cpu_ksharded"]
+    if not (ks_card["converged"] and scan["converged"] and cpu["converged"]
+            and all(v["w_diff"] <= 1e-6 and v["sig_diff"] <= 1e-8
+                    for v in (scan, cpu))
+            and cpu["iters"] == ks_card["iters"]):
+        raise PhaseError("2i (a): ksharded disagrees with scan or with the CPU")
+    b, sm = k["b"], r["summary"]
+    over = b["sigma"] / min(sm["cold_sigma"], nom["sigma"]) - 1.0
+    d64 = abs(b["sigma"] - nom64)
+    print(f"2i (b) ksharded scvx_solve of the nominal rocket, K={MAIN_K}, "
+          f"{MAIN_SUBSTEPS} substeps, float32, bench.py's settings: converged "
+          f"{b['converged']} in {b['iterations']} SCvx iterations, wall "
+          f"{b['wall']:.3f} s, {1e3 * b['wall'] / max(b['lockstep'], 1):.2f} "
+          f"ms per SCvx iteration, sigma {b['sigma']:.6f}; |sigma - the f64 "
+          f"nominal's {nom64:.6f}| {d64:.3e} (gate 1e-2); phase 2b's cold "
+          f"PCR solve: {sm['cold_iterations']} iterations, "
+          f"{r['cold_s']:.3f} s, "
+          f"{1e3 * r['cold_s'] / max(sm['cold_iterations'], 1):.2f} ms per "
+          f"SCvx iteration, sigma {sm['cold_sigma']:.6f}; phase 2f's cold "
+          f"nominal (fused scan): {nom['iterations']} iterations, "
+          f"{nom['wall']:.3f} s, sigma {nom['sigma']:.6f}; ksharded over the "
+          f"lower of the two, relative {over:.3e} (gate <= 1e-3); {card}")
+    print(f"2i (c) launches {json.dumps(b['launches'])}"
+          + (f": {b['launch_error']}" if b["launch_error"] else
+             " as the IPM's structure says"))
+    if not (b["converged"] and b["finite"] and d64 <= 1e-2
+            and over <= 1e-3):
+        raise PhaseError("2i (b): the ksharded solve did not converge to "
+                         "the nominal's sigma")
+    if b["launch_error"]:
+        raise PhaseError(f"2i (c): {b['launch_error']}")
+    kinds = collections.defaultdict(list)
+    for c in k["d"]:
+        kinds[c["name"], tuple(map(tuple, c["shapes"]))].append(c)
+    for (name, shapes), res in kinds.items():
+        reads = "; ".join(f"{key} {max(x[key] for x in res):.3f}"
+                          for key in res[0] if key.startswith(("fwd_", "bwd_")))
+        n_bad = sum(not x["ok"] for x in res)
+        print(f"2i (d) check {name} at {list(shapes)} ({len(res)} call(s) "
+              f"of (b)): guaranteed lanes lost by the kernel f32 "
+              f"{sum(x['kernel32_lost'] for x in res)}, f64 "
+              f"{sum(x['kernel64_lost'] for x in res)}; {reads} -> "
+              f"{'ok' if n_bad == 0 else f'FAIL in {n_bad}'}")
+    # (name, lanes, blocks): the interior chain, the reduced system and
+    # the folded columns of Ya and Zb
+    held = {(name, shapes[0][0], shapes[0][1]) for name, shapes in kinds}
+    interior = MAIN_K - 2
+    must = {("tridiag_factor", 1, interior), ("tridiag_factor", 1, 1),
+            ("tridiag_solve", 1, interior), ("tridiag_solve", 1, 1),
+            ("tridiag_solve", k["nrx"], interior)}
+    if any(not c["ok"] for c in k["d"]) or not must <= held:
+        raise PhaseError("2i (d): tridiag_factor or tridiag_solve disagrees "
+                         "with its plain version, or a kind of call was not "
+                         "held")
+
+
 def _card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     try:
@@ -2832,6 +3064,17 @@ def main(save_captures: str | None = None) -> int:
                      h_paths[k]], cwd=ROOT, stdout=log,
                     stderr=subprocess.STDOUT)
             children.append(h_children[k])
+        # phase 2i, the ksharded KKT backend on the card, in a child beside
+        # them: (a) the JAX test's subproblem, (b) a ksharded scvx_solve and
+        # (c) its launches, (d) kernels 5 and 2 on (b)'s calls
+        k_path = os.path.join(ROOT, "build", "chip_smoke_2i.json")
+        if os.path.exists(k_path):
+            os.remove(k_path)
+        with open(k_path.replace(".json", ".log"), "w") as log:
+            k_child = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ksharded",
+                 k_path], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        children.append(k_child)
         # the penalized case with the plain factor on the card, a reading, in
         # a child beside the card runs below (after phase 5: it would share
         # the card with the timed kernels)
@@ -2895,10 +3138,13 @@ def main(save_captures: str | None = None) -> int:
                 print(f"2h {k} child (exit code {c.returncode}): " + " ".join(
                     open(h_paths[k].replace(".json", ".log")).read().split()
                 )[-1500:])
+        if k_child.returncode:
+            print(f"2i child (exit code {k_child.returncode}): " + " ".join(
+                open(k_path.replace(".json", ".log")).read().split())[-1500:])
         paths = list(ref_paths.values()) + list(card_paths.values())
         paths += [replan_path, plain_path, cli_out["stc.npz"],
                   cli_out["sweep.jsonl"], cli_out["ck"] + ".npz"]
-        paths += list(h_paths.values())
+        paths += list(h_paths.values()) + [k_path]
         if any(rcs) or not all(os.path.exists(q) for q in paths):
             raise PhaseError(f"f64 reference runs or CLI children failed "
                              f"(rc={rcs})")
@@ -2931,6 +3177,10 @@ def main(save_captures: str | None = None) -> int:
             raise PhaseError("CLI children disagree with the in-process runs")
         check_sharded(json.load(open(h_paths["a"])),
                       json.load(open(h_paths["bc"])), card)
+        check_ksharded(json.load(open(k_path)), r, {
+            "sigma": float(nominal.sigma[0]),
+            "iterations": int(nominal.iterations[0]), "wall": nominal_s},
+            card64["seeded"]["nominal"]["sigma"][0], card)
 
         def rel_diff(a, b):
             """max |a - b| over max |b| (normwise, arrays or lists)."""
@@ -3054,6 +3304,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--sharded-resume":
         sharded_resume_child(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--ksharded":
+        ksharded_child(sys.argv[2])
         sys.exit(0)
     if len(sys.argv) == 5 and sys.argv[1] == "--pm-run-batch":
         pm_run_batch_child(*sys.argv[2:])

@@ -3,7 +3,8 @@
 Usage:
     python -m successiveconvexification_tpu_torch.cli solve
         [--model rocket6dof] [--config cfg.yaml] [--K 50] [--dtype float32]
-        [--out traj.npz] [--profile DIR] [--device cuda]
+        [--out traj.npz] [--plot fig.png] [--animate landing.gif]
+        [--profile DIR] [--device cuda]
     python -m successiveconvexification_tpu_torch.cli sweep --batch 256
         [--seed 0] [--seeded] [--compact off|device] [--checkpoint ckpt]
         [--metrics metrics.jsonl] [--profile DIR] [--device cuda]
@@ -14,7 +15,9 @@ Overrides use dotted flags: --ipm.max_iters=20 --scvx.w_nu=100 --disc.K=50.
 Models: rocket6dof, rocket6dof_stc (the angle-of-attack constraint) and
 pointmass3dof. ``--device`` defaults to the card; without one the CLI exits
 with an error unless it is given ``--device cpu``. Each command prints one
-JSON record, with the JAX package's CLI's keys.
+JSON record, with the JAX package's CLI's keys. ``solve --plot`` and
+``--animate`` draw the solution with ``utils/plotting.py``, which needs
+matplotlib: without it the CLI exits with an error before it solves.
 
 ``sweep --distributed`` is the production multi-process sweep: start one
 process a rank with the same flags and its own ``--process-id``. Each joins
@@ -106,9 +109,19 @@ def _timed(run, device, profile):
     return out, time.perf_counter() - t0
 
 
+def _need_matplotlib() -> None:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        raise SystemExit(f"scvx: --plot and --animate need matplotlib, "
+                         f"which is not installed ({e})") from None
+
+
 def cmd_solve(args, overrides, device):
     from successiveconvexification_tpu_torch.ops.scvx import scvx_solve
 
+    if args.plot or args.animate:
+        _need_matplotlib()
     cfg = _load_cfg(args, overrides)
     if args.K:
         cfg = cfg.replace(disc=dataclasses.replace(cfg.disc, K=args.K))
@@ -133,6 +146,15 @@ def cmd_solve(args, overrides, device):
         np.savez(args.out, X=X.cpu().numpy(), U=U.cpu().numpy(),
                  sigma=sigma.cpu().numpy())
         print(f"trajectory written to {args.out}")
+    from successiveconvexification_tpu_torch.utils import plotting
+
+    if args.plot:
+        plotting.plot_trajectory(X, U, sigma, params=params, path=args.plot)
+        print(f"plot written to {args.plot}")
+    if args.animate:
+        plotting.animate_trajectory(X, U, sigma, params=params,
+                                    path=args.animate)
+        print(f"animation written to {args.animate}")
 
 
 def cmd_sweep(args, overrides, device):
@@ -234,6 +256,10 @@ def main(argv=None):
     ps.add_argument("--K", type=int, default=None)
     ps.add_argument("--dtype", default=None)
     ps.add_argument("--out", default=None)
+    ps.add_argument("--plot", default=None, metavar="PNG",
+                    help="write the trajectory's figure (needs matplotlib)")
+    ps.add_argument("--animate", default=None, metavar="GIF",
+                    help="write an animated landing GIF (needs matplotlib)")
     ps.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of one solve to DIR")
 

@@ -14,8 +14,11 @@ Fields the port reads differently from the JAX package:
   * ``IPMConfig.kkt_solver`` may be ``"scan"`` (the fused factorization,
     or the unfused one with the block-tridiagonal Cholesky when the
     subproblem has rank-one quadratic rows) or ``"pcr"`` (the unfused
-    factorization with parallel cyclic reduction);
-    ``"ksharded"`` raises. ``IPMConfig.gondzio_correctors`` must be 0.
+    factorization with parallel cyclic reduction) or ``"ksharded"`` (the
+    unfused factorization with the Schur system split along K over
+    ``torch.distributed`` ranks; install the mesh with
+    ``parallel.kkt_sharded.set_kkt_mesh`` first).
+    ``IPMConfig.gondzio_correctors`` must be 0.
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ kernels the ported paths run:
     (replaces ``pallas_kkt.cho_solve_vec`` / ``_cho_solve_kernel``);
   - ``tridiag_solve``: forward and backward block-tridiagonal sweeps in ONE
     launch (replaces ``pallas_kkt.tridiag_solve``, which took two);
+    ``tridiag_solve_mat`` runs it on a matrix right-hand side;
   - ``chol``: lower Cholesky of N tiny SPD blocks (replaces
     ``pallas_kkt.chol`` / ``_chol_kernel``);
   - ``cho_solve``: (L L') X = B for N tiny blocks, matrix rhs (replaces
@@ -22,9 +23,11 @@ The first two run on the main path (fused ``scan`` factorization), the
 next two on the single-lane replan path (unfused factorization, PCR);
 ``cho_solve_vec`` runs on both. The unfused ``scan`` factorization (a
 subproblem with rank-one quadratic rows) runs ``chol``, ``cho_solve``,
-``tridiag_factor``, ``tridiag_solve`` and ``cho_solve_vec``.
-``fused_chol_solve`` is on no path, as in the JAX package, whose tests
-alone call it.
+``tridiag_factor``, ``tridiag_solve`` and ``cho_solve_vec``; the
+``ksharded`` backend (``parallel/kkt_sharded.py``) runs the same five,
+its interior chains and its reduced system on ``tridiag_factor`` and
+``tridiag_solve``. ``fused_chol_solve`` is on no path, as in the JAX
+package, whose tests alone call it.
 
 Each wrapper launches its kernel on a CUDA tensor (or raises) and uses its
 plain PyTorch version on a CPU tensor, only because the tensor lies on the
@@ -96,6 +99,46 @@ def tridiag_solve(L: torch.Tensor, C: torch.Tensor,
 
 
 tridiag_solve.launches = 0
+
+
+def tridiag_solve_mat_plain(L: torch.Tensor, C: torch.Tensor,
+                            R: torch.Tensor) -> torch.Tensor:
+    return smallla.blocktridiag_solve(L, C, R)
+
+
+def fold_columns(L: torch.Tensor, C: torch.Tensor, R: torch.Tensor):
+    """(L, C, r) of B * m lanes from L, C (B, N, n, n) and R (B, N, n, m):
+    lane b * m + j is column j of lane b, with L and C repeated for each
+    column. The repeated factors are m times the size of L and C: at the
+    rocket's width (n = m = 13, N = 49) and B = 256, about 108 MB each in
+    float32."""
+    if L.dim() != 4 or C.shape != L.shape or R.shape[:-1] != L.shape[:-1]:
+        raise ValueError(f"tridiag_solve_mat: shapes {tuple(L.shape)}, "
+                         f"{tuple(C.shape)}, {tuple(R.shape)}")
+    B, N, n, _ = L.shape
+    m = R.shape[-1]
+
+    def rep(t):
+        return t[:, None].expand(B, m, N, n, n).reshape(B * m, N, n, n)
+
+    return rep(L), rep(C), R.permute(0, 3, 1, 2).reshape(B * m, N, n)
+
+
+def unfold_columns(u: torch.Tensor, m: int) -> torch.Tensor:
+    """The (B, N, n, m) solution from ``fold_columns``' lanes (B * m, N, n)."""
+    BM, N, n = u.shape
+    return u.reshape(BM // m, m, N, n).permute(0, 2, 3, 1)
+
+
+def tridiag_solve_mat(L: torch.Tensor, C: torch.Tensor,
+                      R: torch.Tensor) -> torch.Tensor:
+    """Solve M U = R from the block factors for a matrix right-hand side;
+    L, C (B, N, n, n), R (B, N, n, m). One ``tridiag_solve`` launch on the
+    columns folded into the lane axis (``fold_columns``): the kernel takes
+    one right-hand side a lane."""
+    if all(t.device.type == "cpu" for t in (L, C, R)):
+        return tridiag_solve_mat_plain(L, C, R)
+    return unfold_columns(tridiag_solve(*fold_columns(L, C, R)), R.shape[-1])
 
 
 def chol_plain(A: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ per-lane ``(B,)`` tensors, and the per-lane ``lax.while_loop`` is a Python
 loop whose finished lanes are frozen by ``torch.where`` (the select a
 batched ``while_loop`` applies), so results do not depend on the batch.
 
-Three factorization routes are ported (``factorize``), each with CUDA
+Four factorization routes are ported (``factorize``), each with CUDA
 kernels on the card and their plain PyTorch versions on the CPU:
 
   * ``kkt_solver="scan"`` without rank-one quadratic rows (the batched
@@ -34,7 +34,11 @@ kernels on the card and their plain PyTorch versions on the CPU:
     reduction (``_pcr_factor`` / ``_pcr_solve``, plain ``torch.linalg``
     like the JAX package's XLA ``smallla`` there, but always in float64,
     where the JAX package reduces in the problem's dtype: see
-    ``_pcr_factor``).
+    ``_pcr_factor``);
+  * ``kkt_solver="ksharded"``: the unfused factorization with the Schur
+    system split along K over ``torch.distributed`` ranks
+    (``parallel/kkt_sharded.py``), its interior chains and reduced system
+    on ``cuda_kkt.tridiag_factor`` and ``cuda_kkt.tridiag_solve``.
 
 The unfused factorization builds H here (``build_H``), factors it by
 ``cuda_kkt.chol`` and forms H^-1 E', H^-1 F' by ``cuda_kkt.cho_solve``.
@@ -56,12 +60,10 @@ from successiveconvexification_tpu_torch.ops import equilibrate as equilibrate_m
 from successiveconvexification_tpu_torch.ops import smallla, socp
 from successiveconvexification_tpu_torch.ops.cones import lane, lane_sum
 from successiveconvexification_tpu_torch.ops.socp import Primal, StageSOCP
+from successiveconvexification_tpu_torch.parallel import kkt_sharded
 from successiveconvexification_tpu_torch.utils.tree import tree_leaves, tree_where
 
 ConeVec = Dict[str, torch.Tensor]
-
-_NO_KSHARDED = ("the cross-device 'ksharded' KKT backend is not ported yet "
-                "(ROADMAP.md Queue 1 item 8, multi-device)")
 
 
 class KKTFactors(NamedTuple):
@@ -70,7 +72,8 @@ class KKTFactors(NamedTuple):
     d_q: torch.Tensor        # (B, K-1, nrx)
     h_sig: torch.Tensor      # (B,)
     tri: tuple               # "scan": (L, C), each (B, K-1, nrx, nrx);
-                             # "pcr": (levels, chol_final), _pcr_factor
+                             # "pcr": (levels, chol_final), _pcr_factor;
+                             # "ksharded": kkt_sharded.KShardedFactors
     sm_t: torch.Tensor       # (B, K-1, nrx)  M0^-1 g
     sm_denom: torch.Tensor   # (B,)           h_sig + g' M0^-1 g
 
@@ -153,10 +156,12 @@ def _ranges_tensor(ranges: tuple, device: torch.device) -> torch.Tensor:
 
 
 def factorize(d: StageSOCP, W, cfg: IPMConfig) -> KKTFactors:
-    if cfg.kkt_solver == "ksharded":
-        raise NotImplementedError(_NO_KSHARDED)
     if cfg.kkt_solver == "pcr":
         return _factorize_unfused(d, W, cfg, _pcr_factor)
+    if cfg.kkt_solver == "ksharded":
+        # the Schur system split along K over the ranks of the mesh that
+        # kkt_sharded.set_kkt_mesh installed
+        return _factorize_unfused(d, W, cfg, kkt_sharded.ksharded_factor)
     if cfg.kkt_solver != "scan":
         raise ValueError(f"unknown kkt_solver {cfg.kkt_solver!r}")
     if d.Q_r1.shape[2]:
@@ -182,8 +187,9 @@ def _factorize_unfused(d: StageSOCP, W, cfg: IPMConfig,
                        schur_factor) -> KKTFactors:
     """H built and factored block by block, the Schur system M = A H^-1 A'
     formed with matrix products (diagonal blocks D, couplings O) and
-    factored by ``schur_factor(D, O)``: ``_pcr_factor`` (``"pcr"``) or the
-    block Cholesky ``cuda_kkt.tridiag_factor`` (``"scan"``)."""
+    factored by ``schur_factor(D, O)``: ``_pcr_factor`` (``"pcr"``), the
+    block Cholesky ``cuda_kkt.tridiag_factor`` (``"scan"``) or
+    ``kkt_sharded.ksharded_factor`` (``"ksharded"``)."""
     nx = d.c_p.shape[-1]
     reg = cfg.static_reg
     H, d_p, d_q, h_sig = build_H(d, W, reg)
@@ -214,6 +220,8 @@ def _with_sherman_morrison(d, cfg, chol_Hw, d_p, d_q, h_sig, tri) -> KKTFactors:
 def _tri_solve(cfg: IPMConfig, tri, rhs):
     if cfg.kkt_solver == "pcr":
         return _pcr_solve(tri, rhs)
+    if cfg.kkt_solver == "ksharded":
+        return kkt_sharded.ksharded_solve(tri, rhs)
     L, Coff = tri
     return cuda_kkt.tridiag_solve(L, Coff, rhs)
 

@@ -67,21 +67,24 @@ def blocktridiag_factor(D: torch.Tensor, O: torch.Tensor):
 
 def blocktridiag_solve(chol_D: torch.Tensor, Coff: torch.Tensor,
                        rhs: torch.Tensor) -> torch.Tensor:
-    """Solve M u = rhs given the block factorization; rhs (..., N, n)."""
+    """Solve M u = rhs given the block factorization; rhs (..., N, n) or
+    (..., N, n, m)."""
     N = chol_D.shape[-3]
+    vec = rhs.dim() == chol_D.dim() - 1
+    b = rhs[..., None] if vec else rhs
     v = []
-    v_prev = torch.zeros_like(rhs[..., 0, :])
+    v_prev = torch.zeros_like(b[..., 0, :, :])
     for k in range(N):
-        r = rhs[..., k, :] - (Coff[..., k, :, :].transpose(-1, -2)
-                              @ v_prev[..., None])[..., 0]
+        r = b[..., k, :, :] - Coff[..., k, :, :].transpose(-1, -2) @ v_prev
         v_prev = solve_lower(chol_D[..., k, :, :], r)
         v.append(v_prev)
     u = [None] * N
-    u_next = torch.zeros_like(rhs[..., 0, :])
+    u_next = torch.zeros_like(b[..., 0, :, :])
     for k in range(N - 1, -1, -1):
         r = v[k]
         if k + 1 < N:
-            r = r - (Coff[..., k + 1, :, :] @ u_next[..., None])[..., 0]
+            r = r - Coff[..., k + 1, :, :] @ u_next
         u_next = solve_upper_t(chol_D[..., k, :, :], r)
         u[k] = u_next
-    return torch.stack(u, dim=-2)
+    out = torch.stack(u, dim=-3)
+    return out[..., 0] if vec else out

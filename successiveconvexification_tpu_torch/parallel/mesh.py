@@ -13,7 +13,9 @@ tile ``[r B / W, (r + 1) B / W)`` of a batch of B lanes, the tile JAX's
 ``P("scenario")`` gives, so lane i is the same scenario whatever the world
 size. Every rank draws the whole batch from the same seed and keeps its own
 lanes (``shard_scenario_tree``); ``gather_scenario_tree`` puts the lanes
-back together in lane order.
+back together in lane order. The K-sharded KKT backend
+(``parallel/kkt_sharded.py``) splits the node axis over the same ranks,
+with ``Mesh.shift`` (a neighbour exchange) and ``Mesh.all_gather``.
 """
 
 from __future__ import annotations
@@ -54,6 +56,31 @@ class Mesh:
         if self.group is not None:
             dist.all_reduce(t, op=op, group=self.group)
         return t
+
+    def shift(self, t: torch.Tensor, step: int) -> torch.Tensor:
+        """Rank r's ``t`` as rank r + step receives it (step +1 or -1); the
+        rank that no neighbour sends to gets zeros (JAX's ``ppermute``)."""
+        src, dst = self.rank - step, self.rank + step
+        out = torch.zeros_like(t)
+        ops = []
+        if 0 <= dst < self.world:
+            ops.append(dist.P2POp(dist.isend, t.contiguous(), dst,
+                                  group=self.group))
+        if 0 <= src < self.world:
+            ops.append(dist.P2POp(dist.irecv, out, src, group=self.group))
+        if ops:   # none for one process
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return out
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` stacked on a new leading axis, in rank order,
+        on every rank (``t[None]`` for one process)."""
+        if self.world == 1:
+            return t[None]
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.stack(parts)
 
     def barrier(self) -> None:
         """Return once every rank has called it (a no-op for one process)."""

@@ -274,10 +274,11 @@ def test_pcr_route_matches_scan_route(kkt_system):
 
 
 def test_unported_factorizations_raise(kkt_system):
-    """``ksharded`` (multi-device) is not ported: it raises, and never runs
-    a plain version."""
+    """``ksharded`` (multi-device) factors only over an installed mesh:
+    without one it raises, and never falls back to another route
+    (``tests/test_torch_ksharded.py`` holds the backend itself)."""
     dd, W, _, _, _ = kkt_system
-    with pytest.raises(NotImplementedError, match="ksharded"):
+    with pytest.raises(ValueError, match="set_kkt_mesh"):
         tipm.factorize(dd, W, IPMConfig(kkt_solver="ksharded"))
 
 
