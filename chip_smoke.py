@@ -114,7 +114,28 @@ from beside this file and never imports JAX or the JAX package). Phases:
      must not launch); (d) tridiag_factor and tridiag_solve against their
      plain versions (``check_call``'s gates) on (b)'s calls: the interior
      chain (48 blocks), the reduced system at N = 1 and the matrix
-     right-hand side's columns folded into lanes;
+     right-hand side's columns folded into lanes; (e) (a)'s subproblem with
+     two Gondzio correctors an IPM iteration, ksharded against scan on the
+     card (the gate of (a)) and against ksharded without them (the JAX
+     package's gate, ``tests/test_ipm_structured.py:185-196``: at most two
+     more IPM iterations, w within atol 5e-6), its launches matched to the
+     route's structure with the corrector terms (``per_iter``);
+  2j. the Gondzio correctors and the host-compacting sweep, in a child
+     process started beside phase 4's card runs: (a) 2i's reference
+     subproblem on the fused scan, on PCR and, with the penalized path's
+     model, on the unfused scan, each on the card without correctors and
+     with two (the JAX package's gate between them), and with two on the
+     CPU (plain versions; w within atol 1e-6, sig within 1e-8, equal IPM
+     iterations), launches counted around each card solve and matched to
+     the route's structure with the corrector terms; (b) ``scvx_solve`` of
+     the nominal rocket at the main path's settings with two correctors on
+     the fused route, gated as 2i (b), its SCvx and IPM iterations and ms
+     per SCvx iteration printed beside phase 2f's nominal; (c) the main
+     path's sweep under ``solve_batch_compact`` (host compaction, chunk 10,
+     min bucket 32): its final state must be phase 2's bit for bit, leaf by
+     leaf (saved to a file), it must repack and launch as the IPM's
+     structure says; its wall, its repacks and the mean host round trip a
+     chunk are printed;
   3. each kernel against its plain PyTorch version on inputs captured from
      those runs (main path: its first call inside the first IPM iteration,
      and every call of the 10th lockstep SCvx iteration, every third of
@@ -188,7 +209,8 @@ penalized or pointmass) and ``--cpu-replan PATH`` (CPU only) and
 ``--card-plain-factor PATH`` are the child modes of phase 4,
 ``--sharded-sweep PATH``, ``--sharded-resume PATH`` and ``--pm-run-batch
 CKPT MODE PATH`` those of phase 2h, ``--ksharded PATH`` that of phase 2i,
-``--profile-cho-solve PATH`` that of phase 5.
+``--gondzio-host PATH STATE`` that of phase 2j, ``--profile-cho-solve
+PATH`` that of phase 5.
 ``--save-captures PATH`` runs every phase and also saves the captured
 inputs of tridiag_factor, cho_solve_vec, chol and cho_solve (the replan
 and penalized paths' calls, cho_solve's as the IPM makes them) and
@@ -327,6 +349,28 @@ KSHARDED_PER_COLD = _counts(chol=1, cho_solve=2, tridiag_factor=1 + 3,
 # the atmospheric variants' IPM runs two refinement steps: four KKT solves
 # an iteration
 PER_ITER_REFINE2 = _counts(fused_factor=1, tridiag_solve=5, cho_solve_vec=8)
+# a Gondzio corrector (phase 2j) is one more unrefined KKT solve an IPM
+# iteration on its factors: two stage-Hessian solves and the Schur solve,
+# which is one tridiag_solve on the fused and penalized routes, plain on
+# PCR, and one ksharded_solve on ksharded (the interior's tridiag_solve,
+# the reduced system's tridiag_factor and tridiag_solve)
+CORRECTOR = {"scan": _counts(tridiag_solve=1, cho_solve_vec=2),
+             "penalized": _counts(tridiag_solve=1, cho_solve_vec=2),
+             "pcr": _counts(cho_solve_vec=2),
+             "ksharded": _counts(tridiag_factor=1, tridiag_solve=2,
+                                 cho_solve_vec=2)}
+GONDZIO = 2                     # phase 2j's correctors an IPM iteration
+
+
+def per_iter(route: str, g: int = 0) -> dict:
+    """Launches an IPM iteration on ``route`` with ``g`` correctors."""
+    base = {"scan": PER_ITER, "penalized": PENALIZED_PER_ITER,
+            "pcr": REPLAN_PER_ITER, "ksharded": KSHARDED_PER_ITER}[route]
+    return {k: base[k] + g * CORRECTOR[route][k] for k in base}
+
+
+PER_COLD_OF = {"scan": PER_COLD, "penalized": PENALIZED_PER_COLD,
+               "pcr": REPLAN_PER_COLD, "ksharded": KSHARDED_PER_COLD}
 PER_SCVX = _counts(discretize_lanes=1)
 LATE_LOCKSTEP = 10
 # phase 2h: (a) run_batch's commit cadence at the main path's width, (b)
@@ -712,7 +756,8 @@ def _same_leaves(a, b) -> tuple:
     from successiveconvexification_tpu_torch.utils.tree import tree_leaves
 
     la, lb = tree_leaves(a), tree_leaves(b)
-    return sum(torch.equal(_bits(x), _bits(y)) for x, y in zip(la, lb)), len(lb)
+    return sum(torch.equal(_bits(x.cpu()), _bits(y.cpu()))
+               for x, y in zip(la, lb)), len(lb)
 
 
 def _pm_case(P, device: str):
@@ -919,11 +964,13 @@ def sharded_resume_child(path: str) -> None:
         json.dump(out, f)
 
 
-def _ksharded_subproblem(P, device: str):
+def _ksharded_subproblem(P, device: str, penalized: bool = False):
     """(StageSOCP, cfg) of the JAX package's ksharded reference test
     (tests/test_parallel.py:147-189): the rocket at K=50, 3 substeps, f64,
     IPM cap 45 with one refinement step, the first subproblem from
-    ``scvx_init``; on ``device``."""
+    ``scvx_init``; on ``device``. ``penalized``: the penalized path's model
+    (``penalized_model``, w_dir_penalty PENALTY_W), whose subproblem has
+    rank-one rows."""
     import torch
     from successiveconvexification_tpu_torch.models import rocket6dof as rk
     from successiveconvexification_tpu_torch.ops import discretize, socp
@@ -932,6 +979,10 @@ def _ksharded_subproblem(P, device: str):
                          disc=P.DiscretizationConfig(K=MAIN_K, substeps=3),
                          ipm=P.IPMConfig(max_iters=45, refine_steps=1))
     model = P.rocket6dof_model()
+    if penalized:
+        cfg = dataclasses.replace(cfg, scvx=dataclasses.replace(
+            cfg.scvx, w_dir_penalty=PENALTY_W))
+        model = penalized_model(P)
     p = rk.default_params(torch.float64, device).map(lambda v, tail: v[None])
     st = P.scvx_init(model, p, cfg)
     d = socp.assemble(model, cfg.scvx, p, discretize.discretize(
@@ -989,6 +1040,27 @@ def ksharded_child(path: str) -> None:
             out[f"a_{where}_{kkt}"].update(
                 w_diff=float((ref.x.w.cpu() - o.x.w.cpu()).abs().max()),
                 sig_diff=abs(float(ref.x.sig[0]) - float(o.x.sig[0])))
+        # (e) the same subproblem with GONDZIO correctors an iteration on the
+        # card, ksharded (launches counted) and scan
+        e = {}
+        for kkt in ("ksharded", "scan"):
+            d, cfg = _ksharded_subproblem(P, "cuda")
+            icfg = dataclasses.replace(cfg.ipm, kkt_solver=kkt,
+                                       gondzio_correctors=GONDZIO)
+            sol, launches, counts = counted(
+                batch_mod, wrappers, {}, lambda: ipm.ipm_solve(d, icfg))
+            sols["card_g", kkt] = sol
+            e[kkt] = {"converged": bool(sol.converged[0]),
+                      "iters": int(sol.iters[0]), "sig": float(sol.x.sig[0]),
+                      "seconds": counts["wall"], "launches": launches,
+                      "launch_error": _launch_error(
+                          f"2i (e) {kkt}", launches, dict(counts, cold=1),
+                          per_iter(kkt, GONDZIO), PER_COLD_OF[kkt])}
+        g_ks, g_scan = sols["card_g", "ksharded"], sols["card_g", "scan"]
+        e.update(w_diff=float((g_ks.x.w - g_scan.x.w).abs().max()),
+                 sig_diff=abs(float(g_ks.x.sig[0]) - float(g_scan.x.sig[0])),
+                 w_diff_g0=float((g_ks.x.w - ref.x.w).abs().max()))
+        out["e"] = e
         # (b) and (c)
         model = P.rocket6dof_model()
         cfg = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True,
@@ -1029,6 +1101,121 @@ def ksharded_child(path: str) -> None:
     finally:
         ks.set_kkt_mesh(None)
         mesh_lib.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def gondzio_host_child(path: str, main_state: str) -> None:
+    """Child mode of phase 2j. (a) The phase-2i reference subproblem solved
+    on the card on the fused ``scan``, on ``pcr`` and, with the penalized
+    path's model, on the unfused ``scan``, each at 0 and at GONDZIO
+    correctors an iteration (launches counted around each), and on the CPU
+    at GONDZIO; (b) ``scvx_solve`` of the nominal rocket at the main path's
+    settings with GONDZIO correctors on the fused route; (c) the main
+    path's sweep under ``solve_batch_compact`` (host compaction, chunk 10,
+    min bucket 32), its final state compared leaf by leaf with phase 2's
+    (``main_state``, saved by the parent) and each chunk's host round trip
+    timed."""
+    import torch
+
+    torch.set_num_threads(1)
+    P, _, cuda_fused, cuda_kkt, cuda_disc = _import_port()
+    from successiveconvexification_tpu_torch.models import rocket6dof as rk
+    from successiveconvexification_tpu_torch.ops import ipm
+    from successiveconvexification_tpu_torch.parallel import batch as batch_mod
+
+    wrappers = _wrappers(cuda_fused, cuda_kkt, cuda_disc)
+    out = {"a": {}}
+    # (a)
+    for route, kkt in (("scan", "scan"), ("pcr", "pcr"),
+                       ("penalized", "scan")):
+        sols, rec = {}, {}
+        for where, g in (("card", 0), ("card", GONDZIO), ("cpu", GONDZIO)):
+            d, cfg = _ksharded_subproblem(P, "cuda" if where == "card"
+                                          else "cpu", route == "penalized")
+            icfg = dataclasses.replace(cfg.ipm, kkt_solver=kkt,
+                                       gondzio_correctors=g)
+            sol, launches, counts = counted(
+                batch_mod, wrappers, {}, lambda: ipm.ipm_solve(d, icfg))
+            key = f"{where}_g{g}"
+            sols[key] = sol
+            rec[key] = {"converged": bool(sol.converged[0]),
+                        "iters": int(sol.iters[0]),
+                        "sig": float(sol.x.sig[0]),
+                        "seconds": counts["wall"]}
+            if where == "card":
+                rec[key].update(launches=launches,
+                                launch_error=_launch_error(
+                                    f"2j (a) {route} g={g}", launches,
+                                    dict(counts, cold=1), per_iter(route, g),
+                                    PER_COLD_OF[route]))
+        g2, g0, cpu = (sols[f"card_g{GONDZIO}"], sols["card_g0"],
+                       sols[f"cpu_g{GONDZIO}"])
+        rec.update(
+            w_diff_g0=float((g2.x.w - g0.x.w).abs().max()),
+            w_diff_cpu=float((g2.x.w.cpu() - cpu.x.w).abs().max()),
+            sig_diff_cpu=abs(float(g2.x.sig[0]) - float(cpu.x.sig[0])))
+        out["a"][route] = rec
+    # (b)
+    model = P.rocket6dof_model()
+    cfg = _configs(P, "float32", MAIN_K, MAIN_SUBSTEPS, bench=True)
+    cfg_g = dataclasses.replace(cfg, ipm=dataclasses.replace(
+        cfg.ipm, gondzio_correctors=GONDZIO))
+    st, launches, counts = counted(
+        batch_mod, wrappers, {}, lambda: P.scvx_solve(
+            model, rk.default_params(torch.float32, "cuda"), cfg_g,
+            device="cuda"))
+    out["b"] = {"converged": bool(st.converged[0]),
+                "iterations": int(st.iterations[0]),
+                "sigma": float(st.sigma[0]), "wall": counts["wall"],
+                "lockstep": counts["lockstep"], "cold": counts["cold"],
+                "ipm_iterations": launches["fused_factor"] - counts["cold"],
+                "launches": launches,
+                "launch_error": _launch_error(
+                    "2j (b)", launches, counts, per_iter("scan", GONDZIO),
+                    PER_COLD),
+                "finite": all(bool(torch.isfinite(t).all())
+                              for t in (st.X, st.U, st.sigma))}
+    # (c)
+    pb = _dispersed(P, MAIN_B, torch.float32, "cuda")
+    marks = []
+    orig_chunk = batch_mod._solve_chunk
+
+    def timed_chunk(model_, pb_, cfg_, chunk, st_, mesh=None):
+        t0 = time.perf_counter()
+        res = orig_chunk(model_, pb_, cfg_, chunk, st_, mesh)
+        torch.cuda.synchronize()
+        marks.append((t0, time.perf_counter(), pb_.batch_shape[0]))
+        return res
+
+    def host_sweep():
+        res = P.solve_batch_compact(model, pb, cfg, chunk=10, min_bucket=32,
+                                    device="cuda")
+        marks.append((time.perf_counter(), None, None))
+        return res
+
+    batch_mod._solve_chunk = timed_chunk
+    try:
+        st, launches, counts = counted(batch_mod, wrappers, {}, host_sweep)
+    finally:
+        batch_mod._solve_chunk = orig_chunk
+    trips = [1e3 * (b[0] - a[1]) for a, b in zip(marks[:-2], marks[1:-1])]
+    sizes = [m[2] for m in marks[:-1]]
+    main = torch.load(main_state)
+    same, n = _same_leaves(st, main)
+    out["c"] = {"wall": counts["wall"], "lockstep": counts["lockstep"],
+                "cold": counts["cold"], "launches": launches,
+                "launch_error": _launch_error("2j (c)", launches, counts,
+                                              PER_ITER, PER_COLD),
+                "chunks": len(sizes), "sizes": sizes,
+                "repacks": sum(b < a for a, b in zip(sizes, sizes[1:])),
+                "trip_ms": trips,
+                "last_trip_ms": 1e3 * (marks[-1][0] - marks[-2][1]),
+                "same": same, "leaves": n,
+                "converged": int(st.converged.sum()),
+                "max_iterations": int(st.iterations.max()),
+                "finite": all(bool(torch.isfinite(t).all())
+                              for t in (st.X, st.U, st.sigma))}
     with open(path, "w") as f:
         json.dump(out, f)
 
@@ -2072,11 +2259,22 @@ def check_launches(label, launches, counts, per_iter, per_cold,
           f"inits + {counts['lockstep']} SCvx iterations"
           f"{f' + {warm_starts} warm start' if warm_starts else ''}: "
           f"{json.dumps(expect)}")
-    path_kernels = [k for k in launches if per_iter[k] or PER_SCVX[k]]
+    path_kernels = [k for k in launches
+                    if per_iter[k] or (PER_SCVX[k] and n_disc)]
     if any(launches[k] == 0 for k in path_kernels):
         raise PhaseError(f"{label}: a kernel never launched: {launches}")
     if launches != expect:
         raise PhaseError(f"{label}: launch counts do not match the IPM")
+
+
+def _launch_error(label, launches, counts, per_iter_, per_cold):
+    """``check_launches``'s verdict as a message (None when it holds), for
+    a child that reports to the parent."""
+    try:
+        check_launches(label, launches, counts, per_iter_, per_cold)
+    except PhaseError as e:
+        return str(e)
+    return None
 
 
 def _pct(values, q):
@@ -2239,6 +2437,23 @@ def check_ksharded(k: dict, r: dict, nom: dict, nom64: float,
                          "the nominal's sigma")
     if b["launch_error"]:
         raise PhaseError(f"2i (c): {b['launch_error']}")
+    e = k["e"]
+    ks_g, scan_g = e["ksharded"], e["scan"]
+    print(f"2i (e) the (a) subproblem with {GONDZIO} correctors an IPM "
+          f"iteration on the card: ksharded converged {ks_g['converged']} in "
+          f"{ks_g['iters']} IPM iterations ({ks_g['seconds']:.2f} s; without "
+          f"them {ks_card['iters']}), scan converged {scan_g['converged']} "
+          f"in {scan_g['iters']} ({scan_g['seconds']:.2f} s); |w - scan| "
+          f"{e['w_diff']:.3e} (gate 1e-6), |sig - scan| {e['sig_diff']:.3e} "
+          f"(gate 1e-8), |w - ksharded without them| {e['w_diff_g0']:.3e} "
+          f"(gate 5e-6); ksharded launches {json.dumps(ks_g['launches'])}")
+    errors = [x["launch_error"] for x in (ks_g, scan_g) if x["launch_error"]]
+    if errors or not (ks_g["converged"] and scan_g["converged"]
+                      and e["w_diff"] <= 1e-6 and e["sig_diff"] <= 1e-8
+                      and ks_g["iters"] <= ks_card["iters"] + 2
+                      and e["w_diff_g0"] <= 5e-6):
+        raise PhaseError(f"2i (e): ksharded with correctors disagrees with "
+                         f"scan or with g=0, or launched wrong {errors}")
     kinds = collections.defaultdict(list)
     for c in k["d"]:
         kinds[c["name"], tuple(map(tuple, c["shapes"]))].append(c)
@@ -2262,6 +2477,94 @@ def check_ksharded(k: dict, r: dict, nom: dict, nom64: float,
         raise PhaseError("2i (d): tridiag_factor or tridiag_solve disagrees "
                          "with its plain version, or a kind of call was not "
                          "held")
+
+
+def check_gondzio_host(j: dict, r: dict, nom: dict, nom64: float,
+                       main_counts: dict, card: str) -> None:
+    """Print phase 2j's readings (its child's) and fail unless (a) on each
+    route (fused scan, PCR, the penalized model's unfused scan) the
+    reference subproblem converged on the card at 0 and at GONDZIO
+    correctors with at most two more IPM iterations and w within atol 5e-6
+    (the JAX package's gate, ``tests/test_ipm_structured.py:185-196``), the
+    CPU's solve at GONDZIO (plain versions) converged in as many IPM
+    iterations with w within atol 1e-6 and sig within 1e-8 of the card's,
+    and every card solve launched as the route's structure says with the
+    corrector terms; (b) the f32 nominal with GONDZIO correctors converged
+    within 1e-2 of the f64 nominal on the card (``nom64``) and no more than
+    1e-3 relative above the lower of phase 2b's and 2f's f32 cold solves
+    (``check_ksharded`` says why one-sided), with its launches; (c) the
+    host-compacting sweep repacked, launched as the IPM's structure says,
+    and gave phase 2's final state bit for bit: the card's kernels and
+    plain stages repeat their bits across processes."""
+    for route, a in j["a"].items():
+        g0, g2, cpu = a["card_g0"], a[f"card_g{GONDZIO}"], a[f"cpu_g{GONDZIO}"]
+        print(f"2j (a) {route}, the 2i reference subproblem (K={MAIN_K}, 3 "
+              f"substeps, float64, IPM cap 45): card g=0 converged "
+              f"{g0['converged']} in {g0['iters']} IPM iterations "
+              f"({g0['seconds']:.2f} s); card g={GONDZIO} converged "
+              f"{g2['converged']} in {g2['iters']} ({g2['seconds']:.2f} s), "
+              f"|w - g=0| {a['w_diff_g0']:.3e} (gate 5e-6); CPU g={GONDZIO} "
+              f"converged {cpu['converged']} in {cpu['iters']}, |w - card| "
+              f"{a['w_diff_cpu']:.3e} (gate 1e-6), |sig - card| "
+              f"{a['sig_diff_cpu']:.3e} (gate 1e-8); card g={GONDZIO} "
+              f"launches {json.dumps(g2['launches'])}; {card}")
+        errors = [x["launch_error"] for x in (g0, g2) if x["launch_error"]]
+        if errors or not (
+                g0["converged"] and g2["converged"] and cpu["converged"]
+                and g2["iters"] <= g0["iters"] + 2
+                and a["w_diff_g0"] <= 5e-6 and a["w_diff_cpu"] <= 1e-6
+                and a["sig_diff_cpu"] <= 1e-8
+                and cpu["iters"] == g2["iters"]):
+            raise PhaseError(f"2j (a) {route}: the correctors disagree with "
+                             f"g=0 or with the CPU, or launched wrong "
+                             f"{errors}")
+    b, sm = j["b"], r["summary"]
+    over = b["sigma"] / min(sm["cold_sigma"], nom["sigma"]) - 1.0
+    d64 = abs(b["sigma"] - nom64)
+    print(f"2j (b) scvx_solve of the nominal rocket with {GONDZIO} correctors "
+          f"an IPM iteration, fused scan, K={MAIN_K}, float32, bench.py's "
+          f"settings: converged {b['converged']} in {b['iterations']} SCvx "
+          f"iterations ({b['ipm_iterations']} IPM iterations, "
+          f"{b['cold']} cold inits), wall {b['wall']:.3f} s, "
+          f"{1e3 * b['wall'] / max(b['lockstep'], 1):.2f} ms per SCvx "
+          f"iteration, sigma {b['sigma']:.6f}; phase 2f's nominal without "
+          f"them: {nom['iterations']} SCvx iterations "
+          f"({nom['ipm_iterations']} IPM iterations), {nom['wall']:.3f} s, "
+          f"{1e3 * nom['wall'] / max(nom['iterations'], 1):.2f} ms per SCvx "
+          f"iteration, sigma {nom['sigma']:.6f}; |sigma - the f64 nominal's "
+          f"{nom64:.6f}| {d64:.3e} (gate 1e-2); over the lower of 2b's and "
+          f"2f's, relative {over:.3e} (gate <= 1e-3); launches "
+          f"{json.dumps(b['launches'])}; {card}")
+    if b["launch_error"] or not (b["converged"] and b["finite"]
+                                 and d64 <= 1e-2 and over <= 1e-3):
+        raise PhaseError(f"2j (b): the nominal with correctors did not "
+                         f"converge to the nominal's sigma, or launched "
+                         f"wrong {b['launch_error'] or ''}")
+    c = j["c"]
+    trips = c["trip_ms"]
+    print(f"2j (c) host-compacting sweep (solve_batch_compact, chunk 10, min "
+          f"bucket 32), the main path's B={MAIN_B} lanes: wall "
+          f"{c['wall']:.3f} s against phase 2's device compaction "
+          f"{main_counts['wall']:.3f} s (in this process, before phase 4's "
+          f"children); {c['lockstep']} lockstep SCvx iterations "
+          f"({c['cold']} with a cold init; phase 2: "
+          f"{main_counts['lockstep']}, {main_counts['cold']}); "
+          f"{c['converged']}/{MAIN_B} converged, iterations max "
+          f"{c['max_iterations']}; {c['chunks']} chunks, bucket sizes "
+          f"{c['sizes']}, {c['repacks']} repacks; host round trip a chunk "
+          f"(state down, scatter, alive mask, repack, state up) mean "
+          f"{sum(trips) / max(len(trips), 1):.3f} ms (min "
+          f"{min(trips, default=float('nan')):.3f}, max "
+          f"{max(trips, default=float('nan')):.3f}), the last (down, "
+          f"scatter, the result up) {c['last_trip_ms']:.3f} ms; "
+          f"{c['same']}/{c['leaves']} leaves equal phase 2's bit for bit; "
+          f"{card}")
+    if c["launch_error"] or not (c["same"] == c["leaves"] and c["finite"]
+                                 and c["repacks"] >= 1
+                                 and c["converged"] >= MAIN_B // 2):
+        raise PhaseError(f"2j (c): the host sweep is not the device "
+                         f"driver's bit for bit, did not repack, or launched "
+                         f"wrong {c['launch_error'] or ''}")
 
 
 def _card_line() -> str:
@@ -2348,6 +2651,12 @@ def main(save_captures: str | None = None) -> int:
         out, launches, main_counts = run_sweep(
             P, batch_mod, "main path", model, cfg, pb, wrappers, caps, PER_ITER,
             PER_COLD, card)
+        # its final state, for phase 2j's host-compacting sweep
+        from successiveconvexification_tpu_torch.utils import tree as tree_mod
+
+        main_state = os.path.join(ROOT, "build", "chip_smoke_2j_main.pt")
+        torch.save([t.detach().cpu() for t in tree_mod.tree_leaves(out)],
+                   main_state)
 
         # ---- 2b. the replan path ---------------------------------------------
         rcaps = {name: Capture(cuda_kkt, name, REPLAN_PER_COLD[name])
@@ -3075,6 +3384,17 @@ def main(save_captures: str | None = None) -> int:
                 [sys.executable, os.path.abspath(__file__), "--ksharded",
                  k_path], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
         children.append(k_child)
+        # phase 2j, the Gondzio correctors and the host-compacting sweep on
+        # the card, in a child beside them
+        j_path = os.path.join(ROOT, "build", "chip_smoke_2j.json")
+        if os.path.exists(j_path):
+            os.remove(j_path)
+        with open(j_path.replace(".json", ".log"), "w") as log:
+            j_child = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--gondzio-host",
+                 j_path, main_state], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT)
+        children.append(j_child)
         # the penalized case with the plain factor on the card, a reading, in
         # a child beside the card runs below (after phase 5: it would share
         # the card with the timed kernels)
@@ -3138,13 +3458,14 @@ def main(save_captures: str | None = None) -> int:
                 print(f"2h {k} child (exit code {c.returncode}): " + " ".join(
                     open(h_paths[k].replace(".json", ".log")).read().split()
                 )[-1500:])
-        if k_child.returncode:
-            print(f"2i child (exit code {k_child.returncode}): " + " ".join(
-                open(k_path.replace(".json", ".log")).read().split())[-1500:])
+        for name, c, q in (("2i", k_child, k_path), ("2j", j_child, j_path)):
+            if c.returncode:
+                print(f"{name} child (exit code {c.returncode}): " + " ".join(
+                    open(q.replace(".json", ".log")).read().split())[-1500:])
         paths = list(ref_paths.values()) + list(card_paths.values())
         paths += [replan_path, plain_path, cli_out["stc.npz"],
                   cli_out["sweep.jsonl"], cli_out["ck"] + ".npz"]
-        paths += list(h_paths.values()) + [k_path]
+        paths += list(h_paths.values()) + [k_path, j_path]
         if any(rcs) or not all(os.path.exists(q) for q in paths):
             raise PhaseError(f"f64 reference runs or CLI children failed "
                              f"(rc={rcs})")
@@ -3181,6 +3502,11 @@ def main(save_captures: str | None = None) -> int:
             "sigma": float(nominal.sigma[0]),
             "iterations": int(nominal.iterations[0]), "wall": nominal_s},
             card64["seeded"]["nominal"]["sigma"][0], card)
+        check_gondzio_host(json.load(open(j_path)), r, {
+            "sigma": float(nominal.sigma[0]),
+            "iterations": int(nominal.iterations[0]), "wall": nominal_s,
+            "ipm_iterations": nlaunches["fused_factor"] - ncounts["cold"]},
+            card64["seeded"]["nominal"]["sigma"][0], main_counts, card)
 
         def rel_diff(a, b):
             """max |a - b| over max |b| (normwise, arrays or lists)."""
@@ -3307,6 +3633,9 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--ksharded":
         ksharded_child(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 4 and sys.argv[1] == "--gondzio-host":
+        gondzio_host_child(sys.argv[2], sys.argv[3])
         sys.exit(0)
     if len(sys.argv) == 5 and sys.argv[1] == "--pm-run-batch":
         pm_run_batch_child(*sys.argv[2:])

@@ -36,6 +36,7 @@ from successiveconvexification_tpu_torch.parallel.batch import (
     batch_stats,
     sample_dispersions,
     solve_batch,
+    solve_batch_compact,
     solve_batch_compact_device,
     solve_batch_seeded,
     solve_batch_sharded,
@@ -56,6 +57,7 @@ __all__ = [
     "scvx_solve",
     "scvx_warm_start",
     "solve_batch",
+    "solve_batch_compact",
     "solve_batch_compact_device",
     "solve_batch_seeded",
     "solve_batch_sharded",

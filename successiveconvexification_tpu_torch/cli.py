@@ -6,7 +6,7 @@ Usage:
         [--out traj.npz] [--plot fig.png] [--animate landing.gif]
         [--profile DIR] [--device cuda]
     python -m successiveconvexification_tpu_torch.cli sweep --batch 256
-        [--seed 0] [--seeded] [--compact off|device] [--checkpoint ckpt]
+        [--seed 0] [--seeded] [--compact off|device|host] [--checkpoint ckpt]
         [--metrics metrics.jsonl] [--profile DIR] [--device cuda]
         [--distributed --coordinator HOST:PORT --num-processes N
          --process-id I [--ckpt-every 10] [--no-resume]]
@@ -180,7 +180,7 @@ def _sweep(args, overrides, device, mesh):
     from successiveconvexification_tpu_torch.io import checkpoint as ckpt
     from successiveconvexification_tpu_torch.parallel.batch import (
         batch_stats, run_batch, sample_dispersions, solve_batch,
-        solve_batch_compact_device, solve_batch_seeded,
+        solve_batch_compact, solve_batch_compact_device, solve_batch_seeded,
     )
     from successiveconvexification_tpu_torch.utils.metrics import JsonlLogger
 
@@ -217,6 +217,9 @@ def _sweep(args, overrides, device, mesh):
     elif args.compact == "device":
         def run():
             return solve_batch_compact_device(model, pb, cfg, device=device)
+    elif args.compact == "host":
+        def run():
+            return solve_batch_compact(model, pb, cfg, device=device)
     else:
         def run():
             return solve_batch(model, pb, cfg, device=device)
@@ -269,9 +272,10 @@ def main(argv=None):
     pw.add_argument("--batch", type=int, default=256)
     pw.add_argument("--seed", type=int, default=0)
     pw.add_argument("--compact", nargs="?", const="device", default="off",
-                    choices=["off", "device"],
-                    help="repack unconverged lanes into smaller buckets so "
-                         "finished lanes stop costing compute")
+                    choices=["off", "device", "host"],
+                    help="repack unconverged lanes so finished lanes stop "
+                         "costing compute: 'device' = on-device "
+                         "argsort-gather, 'host' = host repacking")
     pw.add_argument("--seeded", action="store_true",
                     help="nominal-seeded dispersion sweep: solve the "
                          "undispersed scenario once, STM-warm-start every "

@@ -18,7 +18,6 @@ Fields the port reads differently from the JAX package:
     unfused factorization with the Schur system split along K over
     ``torch.distributed`` ranks; install the mesh with
     ``parallel.kkt_sharded.set_kkt_mesh`` first).
-    ``IPMConfig.gondzio_correctors`` must be 0.
 """
 
 from __future__ import annotations

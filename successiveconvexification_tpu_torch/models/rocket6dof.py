@@ -420,3 +420,7 @@ def rocket6dof_model(aoa_stc: bool = False) -> Model:
 
 
 _MODELS: dict = {}
+
+
+def get_model() -> Model:
+    return rocket6dof_model()

@@ -43,6 +43,11 @@ kernels on the card and their plain PyTorch versions on the CPU:
 The unfused factorization builds H here (``build_H``), factors it by
 ``cuda_kkt.chol`` and forms H^-1 E', H^-1 F' by ``cuda_kkt.cho_solve``.
 Every route solves the stage Hessian with ``cuda_kkt.cho_solve_vec``.
+
+``IPMConfig.gondzio_correctors`` adds that many unrefined KKT solves an
+iteration on the iteration's factors (Gondzio centrality correctors), on
+every route; with ``ksharded`` each is one more ``ksharded_solve`` on every
+rank.
 """
 
 from __future__ import annotations
@@ -64,6 +69,10 @@ from successiveconvexification_tpu_torch.parallel import kkt_sharded
 from successiveconvexification_tpu_torch.utils.tree import tree_leaves, tree_where
 
 ConeVec = Dict[str, torch.Tensor]
+
+# the cone groups a Gondzio corrector recentres: elementwise clipping is
+# exact Jordan-frame clipping on the orthant, which holds most pairs
+_ORTHANT_KEYS = ("lin", "pq", "sig")
 
 
 class KKTFactors(NamedTuple):
@@ -451,9 +460,6 @@ def ipm_solve(d: StageSOCP, cfg: IPMConfig, init: IPMState | None = None,
     bool; when given, the cold conelp init is also computed and lanes with
     ``init_valid == False`` start from it instead of ``init``.
     """
-    if cfg.gondzio_correctors:
-        raise NotImplementedError("Gondzio correctors are not ported "
-                                  "(gondzio_correctors must be 0)")
     nx_pq = d.c_p.shape[-1]
     d_raw = d
     if cfg.equilibrate:
@@ -596,6 +602,40 @@ def ipm_solve(d: StageSOCP, cfg: IPMConfig, init: IPMState | None = None,
         step_z = C.max_step(spec, z, dz)
         alpha = torch.clamp(cfg.frac_to_boundary * torch.minimum(step_s, step_z),
                             max=1.0)
+
+        # Gondzio centrality correctors: extra unrefined KKT solves on this
+        # iteration's factors that pull the orthant blocks' scaled
+        # complementarity products back into [beta_min, beta_max] * mu_t
+        # (SOC blocks get zeros); a corrector is kept per lane only where it
+        # lengthens the step, by a select over whole trees
+        for _ in range(cfg.gondzio_correctors):
+            a_t = torch.clamp(1.5 * alpha + 0.3, max=1.0)
+            s_t = C.tree_add(s, ds, a_t)
+            z_t = C.tree_add(z, dz, a_t)
+            mu_t = torch.clamp(C.inner(s_t, z_t) / deg, min=1e-30)
+            v = C.jordan_mul(spec, C.w_apply(spec, W, s_t, inverse=True),
+                             C.w_apply(spec, W, z_t, inverse=False))
+            lo = cfg.gondzio_beta_min * mu_t
+            hi = cfg.gondzio_beta_max * mu_t
+            dt = {k: (torch.minimum(torch.maximum(v[k], lane(lo, v[k])),
+                                    lane(hi, v[k])) - v[k])
+                  if k in _ORTHANT_KEYS else torch.zeros_like(v[k])
+                  for k in v}
+            wldt = C.w_apply(spec, W, C.jordan_solve(spec, lam, dt))
+            bz_g = {k: -wldt[k] for k in wldt}
+            dx_g, dy_g, dz_g = solve_kkt_refined(
+                d, f, W, socp.primal_zeros(d), torch.zeros_like(ry), bz_g, cfg,
+                steps=0)
+            gdx_g = socp.apply_G(d, dx_g)
+            ds2 = C.tree_add(ds, {k: -gdx_g[k] for k in gdx_g}, 1.0)
+            dz2 = C.tree_add(dz, dz_g, 1.0)
+            a2 = torch.clamp(cfg.frac_to_boundary * torch.minimum(
+                C.max_step(spec, s, ds2), C.max_step(spec, z, dz2)), max=1.0)
+            better = a2 > alpha
+            dx, dy, dz, ds = tree_where(
+                better, (socp.primal_axpy(dx, dx_g, 1.0), dy + dy_g, dz2, ds2),
+                (dx, dy, dz, ds))
+            alpha = torch.where(better, a2, alpha)
 
         # a converged or numerically exhausted lane never moves: where(),
         # not alpha * dx, so a NaN direction cannot leak in

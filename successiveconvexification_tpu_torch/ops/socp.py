@@ -51,6 +51,21 @@ class StageSOCP(NamedTuple):
     Bx: torch.Tensor       # (B, K, nx, nrx) tangent basis
 
 
+def cone_spec(model: Model) -> Dict[str, str]:
+    """Static cone-group spec for this model's subproblems."""
+    spec = {"lin": "lin", "pq": "lin", "sig": "lin"}
+    for i in range(len(model.soc_dims)):
+        spec[f"soc{i}"] = "soc"
+    spec["tr"] = "soc"
+    return spec
+
+
+def dims(model: Model, K: int):
+    nx, nu = model.nx, model.nu
+    nw = nx + nu + 1
+    return dict(nx=nx, nu=nu, nw=nw, K=K, nl=model.n_lin + 1, ntr=1 + nx + nu)
+
+
 def _mv(M, v):
     return (M @ v[..., None])[..., 0]
 

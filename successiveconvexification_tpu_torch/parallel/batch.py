@@ -9,7 +9,9 @@ that reads the alive count from the device.
 
 ``solve_batch_compact_device`` repacks the still-active lanes into smaller
 power-of-two buckets every ``chunk`` iterations with a stable argsort and a
-gather, so finished lanes stop costing compute. ``solve_batch_seeded`` is
+gather, so finished lanes stop costing compute; ``solve_batch_compact``
+packs the same way on the host, from a copy of the whole state it pulls
+down every chunk. ``solve_batch_seeded`` is
 the production dispersion sweep: one cold nominal solve, every lane
 warm-started from it, then the compacting sweep.
 
@@ -30,6 +32,7 @@ import glob
 import threading
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -111,6 +114,59 @@ def solve_batch(model: Model, params_batch, cfg: SolverConfig,
     while _any_alive(st, cfg.scvx.max_iters, mesh):
         st = _batch_body(model, pb, cfg, st, mesh)
     return st
+
+
+def solve_batch_compact(model: Model, params_batch, cfg: SolverConfig,
+                        chunk: int = 10, min_bucket: int = 8,
+                        device=None) -> ScvxState:
+    """solve_batch with host-side compaction of the unconverged lanes.
+
+    Every ``chunk`` iterations the whole state comes to the host (numpy)
+    and is scattered into a full-size host result by the packed -> original
+    index; the alive mask is read from that copy and picks the next bucket,
+    the smallest power of two >= the count and >= ``min_bucket`` (no repack
+    where it does not shrink). The alive lanes go first in their order,
+    padded with the lowest finished lanes, which stay inert; the params are
+    regathered from the original host copy and the state goes back to the
+    device. The packing is ``solve_batch_compact_device``'s, so at the same
+    ``chunk`` and ``min_bucket`` both give the same final state. The result
+    is on the params' device.
+    """
+    max_iters = cfg.scvx.max_iters
+    pb = to_device(params_batch, cfg, device)
+    dev = pb.device
+    B = pb.batch_shape[0]
+    cur = scvx_init(model, pb, cfg)
+
+    def to_host(t):
+        return t.detach().to("cpu", copy=True).numpy()
+
+    params_np = pb.map(lambda v, tail: to_host(v))
+    result = tree_map(to_host, cur)               # full-size host buffers
+    idx = np.arange(B)                            # packed -> original map
+
+    def scatter(r, p):
+        r[idx] = p
+        return r
+
+    while True:
+        cur = _solve_chunk(model, pb, cfg, chunk, cur)
+        host = tree_map(to_host, cur)
+        result = tree_map(scatter, result, host)
+        alive = (~host.converged) & (host.iterations < max_iters)
+        n = int(alive.sum())
+        if n == 0:
+            break
+        bucket = max(min_bucket, 1 << (n - 1).bit_length())
+        if bucket >= len(idx):
+            continue    # no repack win; keep the current packing
+        sel = np.concatenate([np.flatnonzero(alive),
+                              np.flatnonzero(~alive)[: bucket - n]])
+        idx = idx[sel]
+        pb = params_np.map(lambda v, tail: torch.from_numpy(v[idx]).to(dev))
+        cur = tree_map(lambda a: torch.from_numpy(a[sel]).to(dev), host)
+
+    return tree_map(lambda a: torch.from_numpy(a).to(dev), result)
 
 
 def solve_batch_compact_device(model: Model, params_batch, cfg: SolverConfig,

@@ -5,11 +5,13 @@ The block-tridiagonal Schur system is split along K over gloo ranks on the
 CPU (child processes; 1, 2 and 4 of them, all started at once). Each rank
 solves the JAX package's ``tests/test_parallel.py`` systems (N = 48, 49
 and 10 blocks of 7, here a batch of 3 lanes); the 2-rank run also solves
-a K=12 rocket subproblem with the IPM. The parent holds them against the
+a K=12 rocket subproblem with the IPM on ``ksharded``, without and with
+two Gondzio correctors an iteration. The parent holds them against the
 port's local solve, against JAX's ``solve_blocktridiag_ksharded`` on a
 mesh of as many virtual devices, and against JAX's ``ipm_solve`` with
-``ksharded`` on a 2-device mesh, while the children run. Every rank must
-hold the same bits, and no child may import JAX.
+``ksharded`` on a 2-device mesh (with the correctors, in a child of its
+own), while the children run. Every rank must hold the same bits, and no
+rank may import JAX.
 """
 
 import dataclasses
@@ -43,14 +45,16 @@ NS = (48, 49, 10)        # tests/test_parallel.py: divides 8, K-1, padded
 NB, LANES = 7, 3
 WORLDS = (1, 2, 4)
 IPM_K, IPM_WORLD = 12, 2
+GONDZIO = 2               # the correctors of the second ksharded IPM solve
 CPU = torch.device("cpu")
 
 _WORKER = r"""
-import json, sys
+import dataclasses, json, sys
 import numpy as np
 import torch
 
 rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+GONDZIO = int(sys.argv[5])
 torch.set_num_threads(1)
 import successiveconvexification_tpu_torch as T
 from successiveconvexification_tpu_torch.models import rocket6dof as trk
@@ -75,17 +79,60 @@ try:
             model, p, st.X, st.U, st.sigma, cfg.disc.substeps), st.X, st.U,
             st.sigma, st.tr_radius, True, st.penalty_scale)
         ks.set_kkt_mesh(mesh)
-        sol = ipm.ipm_solve(d, cfg.ipm)
-        for i, t in enumerate(tree_leaves(sol)):
-            arrs[f"ipm_{i}"] = t.numpy()
-        arrs.update(w=sol.x.w.numpy(), sig=sol.x.sig.numpy(),
-                    converged=sol.converged.numpy(), iters=sol.iters.numpy())
+        for g in (0, GONDZIO):
+            sol = ipm.ipm_solve(d, dataclasses.replace(
+                cfg.ipm, kkt_solver="ksharded", gondzio_correctors=g))
+            pre = "" if g == 0 else f"g{g}_"
+            for i, t in enumerate(tree_leaves(sol)):
+                arrs[f"{pre}ipm_{i}"] = t.numpy()
+            arrs.update({f"{pre}w": sol.x.w.numpy(),
+                         f"{pre}sig": sol.x.sig.numpy(),
+                         f"{pre}converged": sol.converged.numpy(),
+                         f"{pre}iters": sol.iters.numpy()})
     arrs["jax_imported"] = np.asarray(any(
         m == "jax" or m.startswith(("jax.", "successiveconvexification_tpu."))
         or m == "successiveconvexification_tpu" for m in sys.modules))
     np.savez(f"{out}/rank{rank}.npz", **arrs)
 finally:
     M.destroy_process_group()
+"""
+
+
+# JAX's ksharded IPM solve with Gondzio correctors on a 2-device mesh, in a
+# child of its own (its graph compiles while the parent's do)
+_JAX_WORKER = r"""
+import dataclasses, json, sys
+import numpy as np
+import jax
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+from jax.sharding import Mesh
+import successiveconvexification_tpu as J
+from successiveconvexification_tpu.models import rocket6dof as rk
+from successiveconvexification_tpu.ops import ipm, socp
+from successiveconvexification_tpu.ops.discretize import discretize
+from successiveconvexification_tpu.ops.scvx import scvx_init
+from successiveconvexification_tpu.parallel import kkt_sharded as ks
+
+cfg = J.SolverConfig.from_dict(json.load(open(sys.argv[1])))
+icfg = dataclasses.replace(cfg.ipm, kkt_solver="ksharded",
+                           gondzio_correctors=int(sys.argv[2]))
+model = J.rocket6dof_model()
+
+
+def solve(p):
+    st = scvx_init(model, p, cfg)
+    d = socp.assemble(model, cfg.scvx, p, discretize(
+        model, p, st.X, st.U, st.sigma, substeps=cfg.disc.substeps),
+        st.X, st.U, st.sigma, st.tr_radius, True, st.penalty_scale)
+    return ipm.ipm_solve(d, icfg)
+
+
+ks.set_kkt_mesh(Mesh(np.asarray(jax.devices()[:int(sys.argv[3])]), ("kkt",)),
+                "kkt")
+sol = jax.jit(solve)(rk.default_params(jnp.float64))
+np.savez(sys.argv[4], w=np.asarray(sol.x.w), sig=np.asarray(sol.x.sig),
+         iters=np.asarray(sol.iters), converged=np.asarray(sol.converged))
 """
 
 
@@ -172,11 +219,14 @@ def ranks(tmp_path_factory):
         dirs[world] = d
     script = out / "worker.py"
     script.write_text(_WORKER)
-    argvs = []
+    jax_script = out / "jax_worker.py"
+    jax_script.write_text(_JAX_WORKER)
+    argvs = [[str(jax_script), str(dirs[IPM_WORLD] / "cfg.json"),
+              str(GONDZIO), str(IPM_WORLD), str(out / "jax_gondzio.npz")]]
     for world in WORLDS:
         port = free_port()
         argvs += [[str(script), str(r), str(world), str(port),
-                   str(dirs[world])] for r in range(world)]
+                   str(dirs[world]), str(GONDZIO)] for r in range(world)]
     procs = spawn(argvs)
     try:
         jax_u = {}
@@ -205,7 +255,9 @@ def ranks(tmp_path_factory):
         for r in range(world):
             with np.load(dirs[world] / f"rank{r}.npz") as z:
                 got[world, r] = dict(z)
-    return systems, got, jax_u, jsol
+    with np.load(out / "jax_gondzio.npz") as z:
+        jsol_g = dict(z)
+    return systems, got, jax_u, jsol, jsol_g
 
 
 def test_pad_chain_and_tiles_match_jax():
@@ -250,7 +302,7 @@ def test_sharded_solve_matches_local_and_jax(ranks, world):
     ``solve_blocktridiag_ksharded`` on as many virtual devices within atol
     1e-12; every rank holds the same u, bit for bit, and no rank imported
     JAX."""
-    systems, got, jax_u, _ = ranks
+    systems, got, jax_u, _, _ = ranks
     for N in NS:
         D, O, r = (torch.as_tensor(systems[f"{k}{N}"]) for k in "DOr")
         u_ref = smallla.blocktridiag_solve(*smallla.blocktridiag_factor(D, O),
@@ -272,7 +324,7 @@ def test_ksharded_ipm_matches_scan_and_jax(ranks):
     matches the port's ``scan`` and JAX's ``ksharded`` on a 2-device mesh:
     converged on all three, w within atol 1e-6 and sig within 1e-8 (JAX's
     gate), the same iteration counts, and the same bits on both ranks."""
-    _, got, _, jsol = ranks
+    _, got, _, jsol, _ = ranks
     cfg = T.SolverConfig.from_dict(_cfg().to_dict())
     scan = tipm.ipm_solve(_port_subproblem(cfg), cfg.ipm)
     r0, r1 = got[IPM_WORLD, 0], got[IPM_WORLD, 1]
@@ -287,6 +339,36 @@ def test_ksharded_ipm_matches_scan_and_jax(ranks):
         np.testing.assert_allclose(r0["w"][0], ref, rtol=0, atol=1e-6)
     for ref in (float(scan.x.sig[0]), float(jsol.x.sig)):
         assert abs(float(r0["sig"][0]) - ref) <= 1e-8
+
+
+def test_ksharded_ipm_with_correctors_matches_scan_and_jax(ranks):
+    """The same subproblem with two Gondzio correctors an iteration (each
+    one more ``ksharded_solve`` on both ranks): on 2 gloo ranks it matches
+    the port's local ``scan`` at g=2 and JAX's ``ksharded`` at g=2 on a
+    2-device mesh: converged on all three, the same iteration counts, w
+    within atol 1e-6 and sig within 1e-8, the same bits on both ranks, and
+    the JAX test's gate against g=0 (at most two more iterations, w within
+    atol 5e-6)."""
+    _, got, _, _, jsol = ranks
+    cfg = T.SolverConfig.from_dict(_cfg().to_dict())
+    scan = tipm.ipm_solve(_port_subproblem(cfg), dataclasses.replace(
+        cfg.ipm, gondzio_correctors=GONDZIO))
+    r0, r1 = got[IPM_WORLD, 0], got[IPM_WORLD, 1]
+    pre = f"g{GONDZIO}_"
+    n_leaves = sum(k.startswith(pre + "ipm_") for k in r0)
+    assert n_leaves == len(tree_leaves(scan))
+    for i in range(n_leaves):
+        np.testing.assert_array_equal(r0[f"{pre}ipm_{i}"], r1[f"{pre}ipm_{i}"])
+    assert bool(scan.converged[0]) and bool(r0[pre + "converged"][0])
+    assert bool(jsol["converged"])
+    assert (int(r0[pre + "iters"][0]) == int(scan.iters[0])
+            == int(jsol["iters"]))
+    for ref in (scan.x.w[0].numpy(), jsol["w"]):
+        np.testing.assert_allclose(r0[pre + "w"][0], ref, rtol=0, atol=1e-6)
+    for ref in (float(scan.x.sig[0]), float(jsol["sig"])):
+        assert abs(float(r0[pre + "sig"][0]) - ref) <= 1e-8
+    assert int(r0[pre + "iters"][0]) <= int(r0["iters"][0]) + 2
+    np.testing.assert_allclose(r0[pre + "w"], r0["w"], rtol=0, atol=5e-6)
 
 
 def test_ksharded_refuses_without_its_mesh():
